@@ -1,0 +1,61 @@
+"""Euclidean projection onto the capped simplex (paper's feasibility set).
+
+The probabilistic-scheduling polytope for file i (Theorem 1) is
+
+  P_i = { x in [0,1]^m : sum_j x_j = k_i, x_j = 0 for j not in S_i }.
+
+Projection of v onto P_i is x = clip(v - tau, 0, 1) on the allowed support,
+where tau solves g(tau) = sum_j clip(v_j - tau, 0, 1) = k_i. g is
+nonincreasing and piecewise-linear; it is solved by bisection, vectorized
+over files (all reductions over the last axis, so stacked batches work).
+"""
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+
+def project_capped_simplex(
+    v: Tensor,
+    k,
+    mask: Tensor | None = None,
+    *,
+    iters: int = 60,
+) -> Tensor:
+    """Project rows of ``v`` (..., r, m) onto {x in [0,1]^m, sum x = k_row}.
+
+    ``mask`` (..., r, m) restricts support: masked-out entries are pinned to
+    0 (chunk placement constraint pi_ij = 0 for j not in S_i). ``k`` may be
+    a scalar or (..., r) tensor; requires k <= #allowed per row.
+    """
+    k = torch.as_tensor(k, dtype=v.dtype, device=v.device).expand(v.shape[:-1])
+    if mask is None:
+        mask = torch.ones_like(v, dtype=torch.bool)
+    else:
+        mask = mask.bool().expand(v.shape)
+
+    vm = torch.where(mask, v, torch.finfo(v.dtype).min)
+    lo = torch.where(mask, v, torch.inf).amin(dim=-1) - 1.0  # g(lo) >= k
+    hi = torch.where(mask, v, -torch.inf).amax(dim=-1)  # g(hi) = 0 <= k
+
+    def g(tau: Tensor) -> Tensor:
+        x = torch.clamp(vm - tau[..., None], 0.0, 1.0)
+        return torch.sum(torch.where(mask, x, 0.0), dim=-1)
+
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        too_big = g(mid) > k  # need larger tau
+        lo = torch.where(too_big, mid, lo)
+        hi = torch.where(too_big, hi, mid)
+    tau = 0.5 * (lo + hi)
+    x = torch.clamp(vm - tau[..., None], 0.0, 1.0)
+    return torch.where(mask, x, 0.0)
+
+
+def feasible_uniform(mask: Tensor, k) -> Tensor:
+    """A strictly feasible interior start: pi_ij = k_i / |S_i| on support."""
+    mask = mask.bool()
+    k = torch.as_tensor(k, dtype=torch.float32, device=mask.device)
+    n_allowed = torch.sum(mask, dim=-1).to(torch.float32)
+    val = (k / n_allowed)[..., None]
+    return torch.where(mask, torch.clamp_max(val, 1.0), 0.0)

@@ -1,0 +1,228 @@
+"""Storage cluster model: the paper's testbed as a calibrated substrate.
+
+The prototype (§V.A, Fig. 5) runs 12 Tahoe storage VMs across three
+OpenStack DCs (New Jersey / Texas / California) with the client in NJ.
+Node j serving a chunk of size B is modelled as
+
+    X_j  =  D_j + Exp(bw_j / B)        (shifted exponential)
+
+with D_j the deterministic overhead and bw_j the effective client<->site
+bandwidth. A :class:`Cluster` holds its tensors on one device, ``cuda``
+unless the caller asks for another; asking for ``cuda`` where no card is
+present raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+from torch import Tensor
+
+from repro_torch.core.queueing import ServiceMoments, shifted_exponential_moments
+
+
+def _device(device: str | torch.device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' was asked for but no CUDA device is present; "
+                "pass device='cpu' to run on the host"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class StorageNode:
+    name: str
+    site: str
+    overhead_s: float  # deterministic per-chunk service floor D_j
+    bandwidth_mbps: float  # effective MB/s for chunk transfer
+    cost_per_chunk: float  # V_j, dollars per stored chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class Cluster:
+    nodes: tuple[StorageNode, ...]
+    device: torch.device | str = "cuda"
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "device", _device(self.device))
+
+    @property
+    def m(self) -> int:
+        return len(self.nodes)
+
+    def _tensor(self, values) -> Tensor:
+        return torch.tensor(values, dtype=torch.float32, device=self.device)
+
+    @property
+    def cost(self) -> Tensor:
+        return self._tensor([nd.cost_per_chunk for nd in self.nodes])
+
+    def overheads(self) -> Tensor:
+        return self._tensor([nd.overhead_s for nd in self.nodes])
+
+    def bandwidths(self) -> Tensor:
+        return self._tensor([nd.bandwidth_mbps for nd in self.nodes])
+
+    def service_params(self, chunk_mb: float | Tensor) -> tuple[Tensor, Tensor]:
+        """The shifted-exponential parameterization ``(D_j, bw_j/B)``.
+
+        ``chunk_mb`` may be a scalar or any shape broadcastable against the
+        trailing node axis (e.g. ``(n, 1)`` for per-request chunk sizes).
+        """
+        chunk = torch.as_tensor(chunk_mb, dtype=torch.float32, device=self.device)
+        return self.overheads(), self.bandwidths() / chunk
+
+    def moments(self, chunk_mb: float) -> ServiceMoments:
+        """Per-node service moments for a given chunk size (MB)."""
+        d, rate = self.service_params(chunk_mb)
+        return shifted_exponential_moments(d, rate)
+
+    def sample_service(
+        self, generator: torch.Generator, chunk_mb: float, shape: tuple[int, ...]
+    ) -> Tensor:
+        """Sample service times, shape (..., m): shifted exponential."""
+        d, rate = self.service_params(chunk_mb)
+        e = torch.empty(shape + (self.m,), dtype=torch.float32, device=self.device)
+        return d + e.exponential_(generator=generator) / rate
+
+    def sample_service_per_request(
+        self, generator: torch.Generator, chunk_mb: Tensor, n: int
+    ) -> Tensor:
+        """Per-request service samples (n, m) where request i transfers
+        ``chunk_mb[i]`` MB (heterogeneous per-file chunk sizes, §V.B)."""
+        d, rate = self.service_params(chunk_mb[:, None])
+        e = torch.empty((n, self.m), dtype=torch.float32, device=self.device)
+        return d + e.exponential_(generator=generator) / rate
+
+
+def tahoe_testbed(
+    *,
+    cost_nj: float = 1.0,
+    cost_tx: float = 0.7,
+    cost_ca: float = 0.85,
+    device: str | torch.device = "cuda",
+) -> Cluster:
+    """12 nodes, 4 per site; client co-located with NJ (paper Fig. 5).
+
+    The constants are the reference's calibration: the §V.B workload
+    (r=1000 files, 50-200 MB, aggregate ~0.118 req/s) is feasible but
+    heavily loaded. CA has higher bandwidth than TX despite larger RTT.
+    """
+    sites = {
+        # site: (overhead_s, bandwidth_mbps) for the 4 nodes
+        "NJ": [(2.2, 6.5), (2.5, 6.0), (2.8, 5.5), (3.2, 5.0)],
+        "TX": [(7.5, 2.0), (8.0, 1.8), (8.5, 1.7), (9.0, 1.5)],
+        "CA": [(3.2, 4.8), (3.5, 4.5), (3.8, 4.2), (4.2, 3.8)],
+    }
+    cost = {"NJ": cost_nj, "TX": cost_tx, "CA": cost_ca}
+    nodes = tuple(
+        StorageNode(
+            name=f"{site.lower()}{i}",
+            site=site,
+            overhead_s=d,
+            bandwidth_mbps=bw,
+            cost_per_chunk=cost[site],
+        )
+        for site, specs in sites.items()
+        for i, (d, bw) in enumerate(specs)
+    )
+    return Cluster(nodes, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Geo-aware client fabric: per-(client-site, node) network profiles.
+# This slice carries what the fleet simulator needs; C = 1 is the paper's
+# own single-client model.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientSite:
+    """One client population site and its network profile to each DC,
+    relative to the cluster's calibrated NJ client: an additive RTT delta
+    and a bandwidth scale per storage site."""
+
+    name: str
+    rtt_s: dict[str, float]
+    bandwidth_scale: dict[str, float]
+
+    @classmethod
+    def reference(cls, name: str, storage_sites: Sequence[str]) -> "ClientSite":
+        """The zero-delta profile (the cluster's own calibration view)."""
+        return cls(
+            name=name,
+            rtt_s={s: 0.0 for s in storage_sites},
+            bandwidth_scale={s: 1.0 for s in storage_sites},
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class GeoFabric:
+    """A cluster plus the client sites reading from it, exposing (C, m)
+    service parameters: row c is what client site c sees of every node."""
+
+    cluster: Cluster
+    sites: tuple[ClientSite, ...]
+
+    def __post_init__(self) -> None:
+        storage_sites = {nd.site for nd in self.cluster.nodes}
+        for cs in self.sites:
+            missing = (storage_sites - set(cs.rtt_s)) | (
+                storage_sites - set(cs.bandwidth_scale)
+            )
+            if missing:
+                raise ValueError(
+                    f"client site {cs.name!r} lacks a profile for storage "
+                    f"site(s) {sorted(missing)}"
+                )
+            bad = [s for s, v in cs.bandwidth_scale.items() if not v > 0]
+            if bad:
+                raise ValueError(
+                    f"client site {cs.name!r} has non-positive "
+                    f"bandwidth_scale for {sorted(bad)}"
+                )
+        if (self.overheads() <= 0).any():
+            raise ValueError("an rtt_s delta drove a pair overhead <= 0")
+
+    @property
+    def n_sites(self) -> int:
+        return len(self.sites)
+
+    @property
+    def m(self) -> int:
+        return self.cluster.m
+
+    def _site_table(self, field: str) -> Tensor:
+        """(C, m): each client site's per-storage-site ``field`` per node."""
+        return self.cluster._tensor([
+            [getattr(cs, field)[nd.site] for nd in self.cluster.nodes]
+            for cs in self.sites
+        ])
+
+    def overheads(self) -> Tensor:
+        """(C, m) deterministic floors D_j + RTT_{c, site_j}."""
+        return self.cluster.overheads() + self._site_table("rtt_s")
+
+    def bandwidths(self) -> Tensor:
+        """(C, m) effective bandwidths bw_j * scale_{c, site_j}."""
+        return self.cluster.bandwidths() * self._site_table("bandwidth_scale")
+
+    def service_params(self, chunk_mb: float | Tensor) -> tuple[Tensor, Tensor]:
+        """(C, m) shifted-exponential params, the geo twin of
+        :meth:`Cluster.service_params`."""
+        chunk = torch.as_tensor(
+            chunk_mb, dtype=torch.float32, device=self.cluster.device
+        )
+        return self.overheads(), self.bandwidths() / chunk
+
+    @classmethod
+    def single_site(cls, cluster: Cluster, name: str = "ref") -> "GeoFabric":
+        """The one-client-site fabric: the cluster's own model, exactly."""
+        sites = sorted({nd.site for nd in cluster.nodes})
+        return cls(cluster=cluster, sites=(ClientSite.reference(name, sites),))
