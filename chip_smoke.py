@@ -5,14 +5,21 @@
 
 Phases, each raising on failure:
 
-1. Build the FCFS kernel from ``src/repro_torch/kernels/csrc/fcfs_queue.cu``
-   with nvcc (into ``build/repro_torch/``); print the build seconds and the
-   card's name and power limit.
-2. Hold the kernel against its plain PyTorch twin on the card: random,
-   heavily loaded inputs at (S, N, m) = (64, 2048, 12), (5, 128, 6) and
+1. Build the kernels from ``src/repro_torch/kernels/csrc/`` with nvcc (into
+   ``build/repro_torch/``), one nvcc per source, started together: the
+   FCFS scan (``fcfs_queue.cu``, kernel B1) and the GF(256) product
+   (``gf256_matmul.cu``, kernels B2 and B3). Print each build's seconds
+   and the card's name and power limit.
+2. Hold B1 against its plain PyTorch twin on the card: random, heavily
+   loaded inputs at (S, N, m) = (64, 2048, 12), (5, 128, 6) and
    (3, 256, 40) (the kernel's wide instance), and unbatched at (2048, 12),
    all through ``fcfs_scan``, with carried queue state and ~5% empty mask
    rows, must give bitwise-equal latency and dep, and busy within rtol 1e-6.
+2b. Hold B2 and B3 against their plain twins, bitwise, on random bytes
+   through ``ops.gf256_matmul`` / ``ops.gf256_matmul_batch`` with the
+   default backend: the sweep shapes of ``tests/test_kernels.py``, a
+   batched (8, 12, 12) x (8, 12, 4099), and an unbatched
+   (4, 4) x (4, 2**29 + 3) whose operand is larger than 2**31 bytes.
 3. Quickstart twin: three files (k = 6, 7, 4) solved at theta = 0.5 and
    200, then simulated with 20000 requests; the simulated mean must stay
    within the bound x 1.05, the claim ``examples/quickstart.py`` asserts.
@@ -21,14 +28,23 @@ Phases, each raising on failure:
    must descend monotonically and stop within 250 iterations (fig8's
    claims), and a fleet of 256 seeds x 100000 requests must go through the
    kernel with a finite mean latency within the bound x 1.05.
+5. The data plane on phase 4's plan: ``CodecPlan.from_solution``; a 4 MiB
+   payload per file (32 Tahoe segments of 128 KiB) from a seeded generator
+   on the card, split as ``pad_and_split`` does; ``encode_batch`` once per
+   (n, k) group (B2); node 0 fails and ``lost_chunk_inventory`` must count
+   every file; each file's ``degraded_patterns(i, [0])`` chunks are
+   gathered and ``decode_requests`` decodes them (B3); every file's
+   decoded rows must equal its data byte for byte.
 
-In phases 3 and 4 the launch count is set to 0 just before each simulator
-call and read just after; each call must have launched the kernel. Every
-scan those calls make is recorded, and its output is held against the
-plain twin on the same masks and service times, as in phase 2. The kernel
-and the plain twin are timed with CUDA events on the fleet's own inputs.
+In phases 3, 4 and 5 every launch count is set to 0 just before each
+main-path call (simulator, encode, decode) and read just after; each call
+must have launched its kernel. Every kernel call those paths make is
+recorded, and its output is held bitwise against the plain twin on the
+same inputs (B1's busy within rtol 1e-6, as in phase 2). Each kernel and
+its plain twin are timed with CUDA events on the main path's own inputs
+(B2 and B3 on the largest codec group's).
 
-It then prints the kernel record as one JSON line and, last, the device
+It then prints the kernel records as one JSON line and, last, the device
 line. It needs a CUDA card, and fails without one.
 """
 from __future__ import annotations
@@ -38,6 +54,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -46,14 +63,25 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import JLCMProblem, solve  # noqa: E402
-from repro_torch.kernels import fcfs_queue  # noqa: E402
+from repro_torch.kernels import fcfs_queue, ops  # noqa: E402
 from repro_torch.kernels.fcfs_queue import (  # noqa: E402
     fcfs_scan,
     fcfs_scan_cuda,
     fcfs_scan_plain,
 )
+from repro_torch.kernels.gf256_matmul import (  # noqa: E402
+    gf256_matmul_batched_cuda,
+    gf256_matmul_batched_plain,
+    gf256_matmul_cuda,
+    gf256_matmul_plain,
+)
+from repro_torch.kernels.gf256_matmul import load_library as load_gf256  # noqa: E402
 from repro_torch.storage import (  # noqa: E402
+    CodecPlan,
     GeoFabric,
+    encode_batch,
+    lost_chunk_inventory,
+    pad_and_split,
     simulate,
     simulate_fleet,
     simulator,
@@ -61,6 +89,14 @@ from repro_torch.storage import (  # noqa: E402
 )
 
 FLEET_SEEDS, FLEET_REQUESTS, NODES = 256, 100_000, 12
+FILE_BYTES = 4 * 2**20  # per file: 32 Tahoe segments of 128 KiB
+# the sweep of tests/test_kernels.py (SHAPES): (M, K, N)
+GF_SHAPES = [(1, 1, 1), (3, 4, 5), (8, 8, 8), (16, 100, 64), (5, 7, 512),
+             (128, 128, 128), (130, 120, 260), (256, 64, 300)]
+GF_WIDE_N = 2**29 + 3  # (4, GF_WIDE_N) is larger than 2**31 bytes
+# each kernel's launch count, by the name the kernels line gives it
+COUNTERS = {"fcfs_scan": fcfs_scan, "gf256_matmul": gf256_matmul_cuda,
+            "gf256_matmul_batched": gf256_matmul_batched_cuda}
 # NVIDIA's published H100 SXM peaks (at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -122,32 +158,34 @@ def cuda_ms(fn, reps: int):
 
 
 @contextlib.contextmanager
-def recorded_scans():
-    """Record every ``fcfs_scan`` call the simulator makes: its inputs and
-    the outputs it got back, so that the kernel can be held against its
-    plain twin on the main path's own masks and service times."""
+def recorded(module, name: str):
+    """Record every call a main path makes to ``module.name``: its inputs
+    and the outputs it got back, so that the kernel can be held against its
+    plain twin on the main path's own inputs."""
+    fn = getattr(module, name)
     calls = []
 
     def recorder(*args):
-        out = fcfs_scan(*args)
+        out = fn(*args)
         calls.append((args, out))
         return out
 
-    simulator.fcfs_scan = recorder
+    setattr(module, name, recorder)
     try:
         yield calls
     finally:
-        simulator.fcfs_scan = fcfs_scan
+        setattr(module, name, fn)
 
 
-def counted(label: str, fn):
-    """Run one main-path call with the launch count set to 0 just before
-    it; return its result and the count read just after."""
-    fcfs_scan.launches = 0
+def counted(label: str, fn, kernel: str = "fcfs_scan"):
+    """Run one main-path call with every launch count set to 0 just before
+    it; return its result and ``kernel``'s count read just after."""
+    for counter in COUNTERS.values():
+        counter.launches = 0
     out = fn()
-    launches = fcfs_scan.launches
+    launches = COUNTERS[kernel].launches
     if launches < 1:
-        raise AssertionError(f"{label} did not go through the FCFS kernel")
+        raise AssertionError(f"{label} did not go through the {kernel} kernel")
     return out, launches
 
 
@@ -185,17 +223,61 @@ def bound(s: int, n: int, m: int) -> dict:
     )
 
 
-def phase_build() -> float:
-    t0 = time.perf_counter()
-    fcfs_queue.load_library()
-    build_s = time.perf_counter() - t0
+def gf_bound(batch: int, m: int, k: int, n: int) -> dict:
+    """The least time for one GF(256) product: each input read once and
+    each output written once, or its operations at the card's peak
+    non-tensor rate (per multiply-add an add of logs, an exp lookup and an
+    xor, plus one log lookup per byte of B)."""
+    n_bytes = batch * (m * k + k * n + m * n)
+    n_ops = batch * k * n + 3 * batch * m * k * n
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    return dict(
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_gb=n_bytes / 1e9,
+    )
+
+
+def hold_gf_against_plain(calls, plain, kernel, label: str) -> dict:
+    """Each recorded GF(256) call's output against the plain twin on its
+    inputs, bitwise; time kernel and plain twin on the largest call."""
+    largest = max(calls, key=lambda call: call[0][1].numel())
+    record = {}
+    for args, got in calls:
+        plain_ms, want = cuda_ms(lambda: plain(*args), reps=1)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label} {tuple(args[1].shape)}: kernel != plain twin")
+        del want
+        print(f"[{label}] main-path call {tuple(args[0].shape)} x {tuple(args[1].shape)}: "
+              f"kernel == plain twin bitwise, plain twin {plain_ms:.1f} ms")
+        if args is largest[0]:
+            record["plain_ms"] = plain_ms
+    a, b = largest[0]
+    record["ms"], _ = cuda_ms(lambda: kernel(a, b), reps=5)
+    shape = (1,) * (3 - a.dim()) + tuple(a.shape) + (b.shape[-1],)
+    record.update(max_abs_err=0.0, **gf_bound(*shape))
+    print(f"[{label}] {tuple(a.shape)} x {tuple(b.shape)} on the path's inputs: kernel "
+          f"{record['ms']:.3f} ms, plain twin {record['plain_ms']:.1f} ms, bound "
+          f"{record['bound_ms']:.3f} ms ({record['bound_gb']:.3f} GB, {record['bound_by']})")
+    return record
+
+
+def phase_build() -> None:
+    def timed(build):
+        t0 = time.perf_counter()
+        build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        fcfs_s, gf_s = pool.map(timed, [fcfs_queue.load_library, load_gf256])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    print(f"[1] fcfs kernel built/loaded in {build_s:.3f} s")
+    print(f"[1] fcfs kernel built/loaded in {fcfs_s:.3f} s")
+    print(f"[1] gf256 kernels built/loaded in {gf_s:.3f} s")
     print(card)
-    return build_s
 
 
 def phase_kernel_vs_plain(dev) -> float:
@@ -214,6 +296,29 @@ def phase_kernel_vs_plain(dev) -> float:
     return worst
 
 
+def phase_gf256_vs_plain(dev) -> None:
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+
+    cases = [("B2", ops.gf256_matmul, gf256_matmul_plain, (rand(m, k), rand(k, n)))
+             for m, k, n in GF_SHAPES]
+    cases.append(("B3", ops.gf256_matmul_batch, gf256_matmul_batched_plain,
+                  (rand(8, 12, 12), rand(8, 12, 4099))))
+    cases.append(("B2", ops.gf256_matmul, gf256_matmul_plain, (rand(4, 4), rand(4, GF_WIDE_N))))
+    for name, fn, plain, (a, b) in cases:
+        counter = COUNTERS["gf256_matmul" if name == "B2" else "gf256_matmul_batched"]
+        before = counter.launches
+        got = fn(a, b)
+        if counter.launches != before + 1:
+            raise AssertionError(f"{name} {tuple(b.shape)}: default backend did not launch")
+        if not torch.equal(got, plain(a, b)):
+            raise AssertionError(f"{name} {tuple(a.shape)} x {tuple(b.shape)}: kernel != plain twin")
+        print(f"[2b] {name} {tuple(a.shape)} x {tuple(b.shape)} ({b.numel()} bytes): "
+              f"kernel == plain twin bitwise")
+
+
 def phase_quickstart(dev) -> tuple[int, float]:
     cluster = tahoe_testbed(device=dev)
     ks = torch.tensor([6.0, 7.0, 4.0], device=dev)
@@ -227,7 +332,7 @@ def phase_quickstart(dev) -> tuple[int, float]:
         sol = solve(prob, max_iters=300)
         solve_s = time.perf_counter() - t0
         gen = torch.Generator(device=dev).manual_seed(0)
-        with recorded_scans() as calls:
+        with recorded(simulator, "fcfs_scan") as calls:
             sim, n = counted("simulate", lambda: simulate(
                 gen, sol.pi, lam, cluster, chunk_mb, 20000))
         launches += n
@@ -241,7 +346,7 @@ def phase_quickstart(dev) -> tuple[int, float]:
     return launches, worst
 
 
-def phase_catalog(dev) -> tuple[int, dict]:
+def phase_catalog(dev) -> tuple[int, dict, object, torch.Tensor]:
     cluster = tahoe_testbed(device=dev)
     lam, ks, chunk = paper_catalog(1000, device=dev)
     eff_chunk = float(np.average(chunk, weights=lam.cpu().numpy()))
@@ -268,7 +373,7 @@ def phase_catalog(dev) -> tuple[int, dict]:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with recorded_scans() as calls:
+    with recorded(simulator, "fcfs_scan") as calls:
         fleet, launches = counted("simulate_fleet", lambda: simulate_fleet(
             gen, sol.pi, lam[None], fabric, eff_chunk, FLEET_REQUESTS, FLEET_SEEDS))
         mean = float(fleet.mean_latency())
@@ -290,10 +395,92 @@ def phase_catalog(dev) -> tuple[int, dict]:
     print(f"[4] {tuple(calls[-1][0][2].shape)} on the fleet's inputs: kernel "
           f"{record['ms']:.3f} ms, plain twin {record['plain_ms']:.1f} ms, bound "
           f"{record['bound_ms']:.3f} ms ({record['bound_gb']:.3f} GB)")
-    return launches, record
+    return launches, record, sol, ks
+
+
+def split_payloads(gen, count: int, k: int, dev) -> torch.Tensor:
+    """``count`` random FILE_BYTES payloads on the card, each split into k
+    zero-padded rows as ``pad_and_split`` does: (count, k, ceil(L / k))."""
+    payload = torch.randint(0, 256, (count, FILE_BYTES), generator=gen, device=dev,
+                            dtype=torch.uint8)
+    chunk = -(-FILE_BYTES // k)
+    rows = torch.zeros((count, k * chunk), dtype=torch.uint8, device=dev)
+    rows[:, :FILE_BYTES] = payload
+    rows = rows.view(count, k, chunk)
+    if not np.array_equal(rows[0].cpu().numpy(), pad_and_split(payload[0].cpu().numpy(), k)):
+        raise AssertionError(f"k={k}: the split differs from pad_and_split")
+    return rows
+
+
+def phase_data_plane(dev, sol, ks) -> dict:
+    t_start = time.perf_counter()
+    plan = CodecPlan.from_solution(sol, ks)
+    print(f"[5] codec plan: {plan.r} files on {plan.m} nodes; groups " + ", ".join(
+        f"(n={g.n}, k={g.k}) x {len(g.file_ids)}" for g in plan.groups))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    data = {(g.n, g.k): split_payloads(gen, len(g.file_ids), g.k, dev) for g in plan.groups}
+    where = {int(f): ((g.n, g.k), row) for g in plan.groups for row, f in enumerate(g.file_ids)}
+
+    coded, enc_launches = {}, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded(ops, "gf256_matmul_cuda") as enc_calls:
+        for g in plan.groups:
+            key = (g.n, g.k)
+            coded[key], n = counted(f"encode_batch {key}", lambda: encode_batch(data[key], g.n),
+                                    "gf256_matmul")
+            enc_launches += n
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    user_gb = sum(x.numel() for x in data.values()) / 1e9
+    coded_gb = sum(x.numel() for x in coded.values()) / 1e9
+    print(f"[5] encode: {user_gb:.3f} GB of rows -> {coded_gb:.3f} GB coded in {encode_s:.3f} s, "
+          f"gf256_matmul launches {enc_launches}")
+    b2 = hold_gf_against_plain(enc_calls, gf256_matmul_plain, gf256_matmul_cuda, "5 encode")
+    enc_calls.clear()
+
+    failed = np.zeros(plan.m, bool)
+    failed[0] = True
+    hurt = np.nonzero(lost_chunk_inventory(plan.placement, failed))[0]
+    if len(hurt) != plan.r:
+        raise AssertionError(f"node 0 held chunks of {len(hurt)} files, expected {plan.r}")
+    patterns, chunks = [], []
+    for f in hurt:
+        key, row = where[int(f)]
+        patterns.append(plan.degraded_patterns(int(f), [0]))
+        chunks.append(coded[key][row, torch.tensor(patterns[-1], device=dev)])
+    del coded
+    parity_reads = sum(max(p) >= int(plan.k[f]) for p, f in zip(patterns, hurt))
+    print(f"[5] node 0 failed: {len(hurt)} of {plan.r} files lost a chunk; "
+          f"{parity_reads} degraded reads need a parity row")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded(ops, "gf256_matmul_batched_cuda") as dec_calls:
+        decoded, dec_launches = counted(
+            "decode_requests", lambda: plan.decode_requests(list(hurt), patterns, chunks),
+            "gf256_matmul_batched")
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    exact = sum(torch.equal(decoded[j], data[where[int(f)][0]][where[int(f)][1]])
+                for j, f in enumerate(hurt))
+    print(f"[5] decode_requests: {exact} of {len(hurt)} files decoded byte-exact in "
+          f"{decode_s:.3f} s, gf256_matmul_batched launches {dec_launches}")
+    if exact != plan.r:
+        raise AssertionError(f"only {exact} of {plan.r} files decoded byte-exact")
+    del decoded, chunks
+    b3 = hold_gf_against_plain(dec_calls, gf256_matmul_batched_plain,
+                               gf256_matmul_batched_cuda, "5 decode")
+    dec_calls.clear()
+    print(f"[5] data plane: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"phase wall {time.perf_counter() - t_start:.3f} s")
+    return {"gf256_matmul": (enc_launches, b2), "gf256_matmul_batched": (dec_launches, b3)}
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)  # keep output if the run is cut
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card", file=sys.stderr)
@@ -304,9 +491,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
     worst = phase_kernel_vs_plain(dev)
+    phase_gf256_vs_plain(dev)
     quick_launches, quick_err = phase_quickstart(dev)
-    fleet_launches, record = phase_catalog(dev)
-    print(json.dumps({"kernels": [{
+    fleet_launches, record, sol, ks = phase_catalog(dev)
+    plane = phase_data_plane(dev, sol, ks)
+    kernels = [{
         "name": "fcfs_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fcfs_queue.cu",
@@ -321,7 +510,30 @@ def main() -> int:
         "bound_ms": record["bound_ms"],
         "bound_by": record["bound_by"],
         "library_ms": None,
-    }]}))
+    }]
+    for name, replaces, path in [
+        ("gf256_matmul", "src/repro/kernels/gf256_matmul.py:106", "data_plane_encode_batch"),
+        ("gf256_matmul_batched", "src/repro/kernels/gf256_matmul.py:168",
+         "data_plane_decode_requests"),
+    ]:
+        launches, rec = plane[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gf256_matmul.cu",
+            "replaces": replaces,
+            "parity": "bitwise",
+            "launches": launches,
+            "launches_by_path": {path: launches},
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": None,  # no PyTorch call computes a GF(256) product
+        })
+    print(f"[done] total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

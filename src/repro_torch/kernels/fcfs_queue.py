@@ -31,42 +31,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 from torch import Tensor
 
+from ._build import build_library
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fcfs_queue.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel's shared library."""
-    src = SOURCE.read_bytes()
-    lib_path = BUILD_DIR / f"fcfs_queue_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if not lib_path.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not Path(nvcc).exists():
-            raise RuntimeError(
-                "nvcc not found on PATH or in /usr/local/cuda/bin: the FCFS "
-                "kernel is built from source at first use"
-            )
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)], check=True
-        )
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = build_library(SOURCE)
     lib.fcfs_scan_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )

@@ -1,6 +1,42 @@
-"""Storage substrate in PyTorch: the calibrated testbed and the exact FCFS
-simulator (single run and seed fleet)."""
+"""Storage substrate in PyTorch: the calibrated testbed, the exact FCFS
+simulator (single run and seed fleet), GF(256) Reed-Solomon and the
+plan-driven batched codec with its repair inventory."""
 from .cluster import ClientSite, Cluster, GeoFabric, StorageNode, tahoe_testbed
+from .codec import (
+    CodecGroup,
+    CodecPlan,
+    decode_bank,
+    decode_batch,
+    encode_batch,
+    host_loop_decode,
+)
+from .gf256 import (
+    bits_to_bytes,
+    bytes_to_bits,
+    gf_const_to_bitmatrix,
+    gf_inv,
+    gf_matmul_ref,
+    gf_mul,
+    gf_mul_table,
+    gf_mul_xtime,
+)
+from .repair import (
+    RepairFlow,
+    augment_plan,
+    build_repair_flow,
+    lost_chunk_inventory,
+    repair_schedule,
+)
+from .rs import (
+    cauchy_parity_matrix,
+    decode,
+    decode_bytes,
+    decode_matrix,
+    encode,
+    generator_matrix,
+    gf_invert_matrix,
+    pad_and_split,
+)
 from .simulator import (
     FleetResult,
     SimDraws,
