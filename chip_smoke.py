@@ -7,19 +7,29 @@ Phases, each raising on failure:
 
 1. Build the kernels from ``src/repro_torch/kernels/csrc/`` with nvcc (into
    ``build/repro_torch/``), one nvcc per source, started together: the
-   FCFS scan (``fcfs_queue.cu``, kernel B1) and the GF(256) product
-   (``gf256_matmul.cu``, kernels B2 and B3). Print each build's seconds
-   and the card's name and power limit.
+   FCFS scan (``fcfs_queue.cu``, kernel B1), the GF(256) product
+   (``gf256_matmul.cu``, kernels B2 and B3) and flash attention
+   (``flash_attention.cu``, kernel B4). Print each build's seconds and the
+   card's name and power limit.
 2. Hold B1 against its plain PyTorch twin on the card: random, heavily
    loaded inputs at (S, N, m) = (64, 2048, 12), (5, 128, 6) and
    (3, 256, 40) (the kernel's wide instance), and unbatched at (2048, 12),
    all through ``fcfs_scan``, with carried queue state and ~5% empty mask
-   rows, must give bitwise-equal latency and dep, and busy within rtol 1e-6.
+   rows, must give bitwise-equal latency and dep, and busy within rtol 1e-6;
+   so must a strided view of the last case.
 2b. Hold B2 and B3 against their plain twins, bitwise, on random bytes
    through ``ops.gf256_matmul`` / ``ops.gf256_matmul_batch`` with the
    default backend: the sweep shapes of ``tests/test_kernels.py``, a
    batched (8, 12, 12) x (8, 12, 4099), and an unbatched
    (4, 4) x (4, 2**29 + 3) whose operand is larger than 2**31 bytes.
+   Products with an empty extent and an n == k encode give the defined
+   result without a launch; a sliced view of a coded batch decodes
+   byte-exact through B3.
+2c. Hold B4 against its plain twin on random normal inputs: the sweep,
+   windows and bf16 case of ``tests/test_kernels.py::TestFlashAttention``
+   (atol 2e-5, bf16 3e-2), unequal and ragged lengths, a non-causal case,
+   and SmolLM-135M's prefill shape (4, 2016, 9, 3, 64); non-causal
+   attention that needs key padding must raise ``ValueError``.
 3. Quickstart twin: three files (k = 6, 7, 4) solved at theta = 0.5 and
    200, then simulated with 20000 requests; the simulated mean must stay
    within the bound x 1.05, the claim ``examples/quickstart.py`` asserts.
@@ -35,14 +45,26 @@ Phases, each raising on failure:
    every file; each file's ``degraded_patterns(i, [0])`` chunks are
    gathered and ``decode_requests`` decodes them (B3); every file's
    decoded rows must equal its data byte for byte.
+6. Serving: ``serve("smollm-135m", smoke=False)``, SmolLM-135M at full
+   width and depth in float32 with random weights from a seed, 4 replicas
+   planned by JLCM, 8 batches of 4 prompts of 2016 tokens routed by Madow
+   sampling, each prefilled (B4 in all 30 layers) and decoded greedily for
+   32 tokens. Every prefill must launch B4 exactly 30 times; every B4 call
+   of the path is held against the plain twin at atol 2e-5; a prefill with
+   naive attention on the same weights and tokens must give last-position
+   logits within 1e-3; every routed replica must lie in pi's support and
+   the plan's bound must be finite. B4 is timed on the path's own inputs
+   beside its plain twin and ``scaled_dot_product_attention`` (timed as a
+   yardstick only; the port never calls it).
 
-In phases 3, 4 and 5 every launch count is set to 0 just before each
-main-path call (simulator, encode, decode) and read just after; each call
-must have launched its kernel. Every kernel call those paths make is
-recorded, and its output is held bitwise against the plain twin on the
-same inputs (B1's busy within rtol 1e-6, as in phase 2). Each kernel and
-its plain twin are timed with CUDA events on the main path's own inputs
-(B2 and B3 on the largest codec group's).
+In phases 3 to 6 every launch count is set to 0 just before each
+main-path call (simulator, encode, decode, prefill) and read just after;
+each call must have launched its kernel. Every kernel call those paths
+make is recorded, and its output is held against the plain twin on the
+same inputs: bitwise for B1 to B3 (B1's busy within rtol 1e-6, as in
+phase 2), within atol 2e-5 for B4. Each kernel and its plain twin are
+timed with CUDA events on the main path's own inputs (B2 and B3 on the
+largest codec group's).
 
 It then prints the kernel records as one JSON line and, last, the device
 line. It needs a CUDA card, and fails without one.
@@ -50,6 +72,7 @@ line. It needs a CUDA card, and fails without one.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -64,6 +87,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import JLCMProblem, solve  # noqa: E402
 from repro_torch.kernels import fcfs_queue, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.fcfs_queue import (  # noqa: E402
     fcfs_scan,
     fcfs_scan_cuda,
@@ -76,9 +100,12 @@ from repro_torch.kernels.gf256_matmul import (  # noqa: E402
     gf256_matmul_plain,
 )
 from repro_torch.kernels.gf256_matmul import load_library as load_gf256  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.storage import (  # noqa: E402
     CodecPlan,
     GeoFabric,
+    decode_batch,
     encode_batch,
     lost_chunk_inventory,
     pad_and_split,
@@ -96,10 +123,16 @@ GF_SHAPES = [(1, 1, 1), (3, 4, 5), (8, 8, 8), (16, 100, 64), (5, 7, 512),
 GF_WIDE_N = 2**29 + 3  # (4, GF_WIDE_N) is larger than 2**31 bytes
 # each kernel's launch count, by the name the kernels line gives it
 COUNTERS = {"fcfs_scan": fcfs_scan, "gf256_matmul": gf256_matmul_cuda,
-            "gf256_matmul_batched": gf256_matmul_batched_cuda}
+            "gf256_matmul_batched": gf256_matmul_batched_cuda,
+            "flash_attention": fa.flash_attention_cuda}
 # NVIDIA's published H100 SXM peaks (at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12  # tensor cores, dense
+FLASH_SHAPE = (4, 2016, 9, 3, 64)  # SmolLM-135M's prefill in phase 6: (B, T, H, KH, hd)
+# phase 6: SmolLM-135M serving 4 replicas; prompt + generation fill its
+# published 2048-token context
+SERVE = dict(n_replicas=4, batch=4, prompt_len=2016, gen_len=32, n_batches=8, hedge=0)
 
 
 def paper_catalog(r: int = 1000, file_mb: float = 150.0, device="cuda"):
@@ -165,9 +198,9 @@ def recorded(module, name: str):
     fn = getattr(module, name)
     calls = []
 
-    def recorder(*args):
-        out = fn(*args)
-        calls.append((args, out))
+    def recorder(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
         return out
 
     setattr(module, name, recorder)
@@ -193,7 +226,7 @@ def hold_against_plain(calls, label: str, time_it: bool = False) -> dict:
     """Each recorded scan's output against the plain twin on its inputs;
     with ``time_it``, also time kernel and plain twin on the last one."""
     record = dict(max_abs_err=0.0)
-    for args, got in calls:
+    for args, _, got in calls:
         t, masks, service = args[:3]
         zeros = torch.zeros(t.shape[:-1] + service.shape[-1:], device=t.device)
         plain_ms, want = cuda_ms(
@@ -239,12 +272,33 @@ def gf_bound(batch: int, m: int, k: int, n: int) -> dict:
     )
 
 
+def flash_bound(q, k) -> dict:
+    """The least time for one causal attention call: q, k, v read once and
+    the output written once, or its float32 operations at the card's peak
+    non-tensor rate: 2 x 2 x hd per (query row, visible key) pair, the
+    pairs counted from the causal mask. The TF32 tensor-core time for the
+    same operations is kept beside it."""
+    b, tq, h, hd = q.shape
+    pairs = int(np.minimum(np.arange(1, tq + 1), k.shape[1]).sum())
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    n_ops = 4 * hd * pairs * b * h
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    return dict(
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_gb=n_bytes / 1e9,
+        bound_flop=n_ops,
+        bound_tf32_ms=n_ops / TF32_OPS_PER_S * 1e3,
+    )
+
+
 def hold_gf_against_plain(calls, plain, kernel, label: str) -> dict:
     """Each recorded GF(256) call's output against the plain twin on its
     inputs, bitwise; time kernel and plain twin on the largest call."""
     largest = max(calls, key=lambda call: call[0][1].numel())
     record = {}
-    for args, got in calls:
+    for args, _, got in calls:
         plain_ms, want = cuda_ms(lambda: plain(*args), reps=1)
         if not torch.equal(got, want):
             raise AssertionError(f"{label} {tuple(args[1].shape)}: kernel != plain twin")
@@ -269,14 +323,16 @@ def phase_build() -> None:
         build()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        fcfs_s, gf_s = pool.map(timed, [fcfs_queue.load_library, load_gf256])
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        fcfs_s, gf_s, fa_s = pool.map(
+            timed, [fcfs_queue.load_library, load_gf256, fa.load_library])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
     print(f"[1] fcfs kernel built/loaded in {fcfs_s:.3f} s")
     print(f"[1] gf256 kernels built/loaded in {gf_s:.3f} s")
+    print(f"[1] flash attention kernel built/loaded in {fa_s:.3f} s")
     print(card)
 
 
@@ -293,6 +349,12 @@ def phase_kernel_vs_plain(dev) -> float:
         print(f"[2] {shape} kernel == plain twin, busy max_abs_err {err} "
               f"({int(torch.isneginf(got[0]).sum())} empty service sets, "
               f"mean latency {float(got[0][torch.isfinite(got[0])].mean()):.2f})")
+    # a view (every other request) goes through the public entry point
+    view = fcfs_scan(t[::2], masks[::2], service[::2], dep0, busy0)
+    want = fcfs_scan_plain(t[::2].contiguous(), masks[::2].contiguous(),
+                           service[::2].contiguous(), dep0, busy0)
+    worst = max(worst, check_parity(view, want, "strided view"))
+    print(f"[2] strided view {tuple(service[::2].shape)}: kernel == plain twin")
     return worst
 
 
@@ -317,6 +379,89 @@ def phase_gf256_vs_plain(dev) -> None:
             raise AssertionError(f"{name} {tuple(a.shape)} x {tuple(b.shape)}: kernel != plain twin")
         print(f"[2b] {name} {tuple(a.shape)} x {tuple(b.shape)} ({b.numel()} bytes): "
               f"kernel == plain twin bitwise")
+
+    # an empty extent is answered without a launch: empty for M or N, zeros
+    # for K; an n == k group's encode is its data
+    before = {name: c.launches for name, c in COUNTERS.items()}
+    for a, b in [(rand(0, 4), rand(4, 9)), (rand(3, 4), rand(4, 0)), (rand(3, 0), rand(0, 9))]:
+        got = ops.gf256_matmul(a, b)
+        if got.shape != (a.shape[0], b.shape[1]) or bool(got.any()):
+            raise AssertionError(f"{tuple(a.shape)} x {tuple(b.shape)} gave {tuple(got.shape)}")
+    got = ops.gf256_matmul_batch(rand(2, 3, 0), rand(2, 0, 5))
+    if got.shape != (2, 3, 5) or bool(got.any()):
+        raise AssertionError("batched K = 0 is not zeros")
+    data = rand(5, 6, 1000)
+    if not torch.equal(encode_batch(data, 6), data):
+        raise AssertionError("an n == k encode is not its data")
+    if {name: c.launches for name, c in COUNTERS.items()} != before:
+        raise AssertionError("an empty product launched a kernel")
+    print("[2b] empty extents and an n == k encode: defined results, no launch")
+    # a sliced (non-contiguous) view of a coded batch decodes through B3
+    n, k = 8, 5
+    data = rand(6, k, 4099)
+    chunks = encode_batch(data, n)[:, 2:2 + k]
+    before = gf256_matmul_batched_cuda.launches
+    got = decode_batch(chunks, [list(range(2, 2 + k))] * 6, n, k)
+    if chunks.is_contiguous() or gf256_matmul_batched_cuda.launches != before + 1:
+        raise AssertionError("the sliced-view decode did not take a view through B3")
+    if not torch.equal(got, data):
+        raise AssertionError("the sliced-view decode differs from the data")
+    print(f"[2b] decode_batch of a view {tuple(chunks.shape)}: byte-exact through B3")
+
+
+def qkv_on(gen, dev, b, tq, h, kh, hd, tk=None, dtype=torch.float32):
+    """Random normal q (B,Tq,H,hd) and k, v (B,Tk,KH,hd) on the card."""
+    tk = tq if tk is None else tk
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return rand(b, tq, h, hd), rand(b, tk, kh, hd), rand(b, tk, kh, hd)
+
+
+def phase_flash_vs_plain(dev) -> float:
+    """B4 against its plain twin: the reference's sweep, windows and bf16
+    case, unequal and ragged lengths, a non-causal case, and SmolLM-135M's
+    prefill shape. Returns the largest float32 |difference|."""
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    cases = [(f"causal t={t} h={h} kh={kh} hd={hd} blk={blk}", qkv_on(gen, dev, 2, t, h, kh, hd),
+              dict(scale=hd**-0.5, q_blk=blk, k_blk=blk), 2e-5)
+             for t, h, kh, hd, blk in [(32, 2, 2, 8, 8), (64, 4, 2, 16, 16),
+                                       (48, 8, 4, 32, 16), (50, 4, 1, 16, 16)]]
+    cases += [(f"window {w}", qkv_on(gen, dev, 1, 64, 4, 2, 16),
+               dict(scale=0.25, window=w, q_blk=16, k_blk=16), 2e-5) for w in (8, 24)]
+    cases.append(("bf16", qkv_on(gen, dev, 1, 32, 2, 2, 16, dtype=torch.bfloat16),
+                  dict(scale=0.25, q_blk=16, k_blk=16), 3e-2))
+    cases += [(f"Tq={tq} Tk={tk} window {w}", qkv_on(gen, dev, 2, tq, 6, 2, 16, tk=tk),
+               dict(scale=0.25, window=w, q_blk=16, k_blk=16), 2e-5)
+              for tq, tk, w in [(24, 40, None), (40, 24, None), (40, 24, 8)]]
+    cases.append(("non-causal", qkv_on(gen, dev, 2, 32, 4, 2, 8),
+                  dict(scale=0.3, causal=False, q_blk=16, k_blk=16), 2e-5))
+    b, t, h, kh, hd = FLASH_SHAPE
+    cases.append((f"SmolLM prefill {FLASH_SHAPE}", qkv_on(gen, dev, b, t, h, kh, hd),
+                  dict(scale=hd**-0.5, q_blk=1024, k_blk=2048), 2e-5))
+    cases.append(("hd=64 window 300, ragged", qkv_on(gen, dev, 1, 1000, h, kh, hd),
+                  dict(scale=hd**-0.5, window=300, q_blk=512, k_blk=512), 2e-5))
+    worst = 0.0
+    for label, (q, k, v), kw, atol in cases:
+        before = fa.flash_attention_cuda.launches
+        got = fa.flash_attention(q, k, v, **kw)
+        if fa.flash_attention_cuda.launches != before + 1:
+            raise AssertionError(f"{label}: flash_attention did not launch B4")
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        if got.dtype != q.dtype or got.shape != q.shape:
+            raise AssertionError(f"{label}: output {got.dtype} {tuple(got.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= atol:
+            raise AssertionError(f"{label}: kernel differs from plain twin by {err} > {atol}")
+        if q.dtype == torch.float32:
+            worst = max(worst, err)
+        print(f"[2c] B4 {label}: kernel == plain twin, max_abs_err {err:.3g} (atol {atol})")
+    q, k, v = qkv_on(gen, dev, 1, 50, 2, 2, 8)
+    try:
+        fa.flash_attention(q, k, v, scale=0.3, causal=False, q_blk=16, k_blk=16)
+    except ValueError:
+        print("[2c] non-causal attention that needs key padding raises ValueError")
+    else:
+        raise AssertionError("non-causal padding did not raise")
+    return worst
 
 
 def phase_quickstart(dev) -> tuple[int, float]:
@@ -479,6 +624,103 @@ def phase_data_plane(dev, sol, ks) -> dict:
     return {"gf256_matmul": (enc_launches, b2), "gf256_matmul_batched": (dec_launches, b3)}
 
 
+def phase_serve(dev) -> tuple[int, dict]:
+    """SmolLM-135M at full width and depth behind the JLCM router."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_launches = []
+    prefill = lm.Model.prefill
+
+    def counted_prefill(self, *args, **kwargs):
+        for counter in COUNTERS.values():
+            counter.launches = 0
+        out = prefill(self, *args, **kwargs)
+        prefill_launches.append(COUNTERS["flash_attention"].launches)
+        return out
+
+    t0 = time.perf_counter()
+    lm.Model.prefill = counted_prefill
+    try:
+        with recorded(fa, "flash_attention") as calls:
+            run = serve("smollm-135m", smoke=False, device=dev, **SERVE)
+    finally:
+        lm.Model.prefill = prefill
+    serve_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cfg = run.model.cfg
+
+    # (a) every prefill launched B4 once per layer
+    if prefill_launches != [cfg.n_layers] * (SERVE["n_batches"] + 1):
+        raise AssertionError(f"B4 launches per prefill {prefill_launches}, "
+                             f"expected {cfg.n_layers} for each")
+    # (b) every B4 call of the path against the plain twin on its inputs
+    worst = 0.0
+    for args, kwargs, got in calls:
+        plain_ms, want = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs), reps=1)
+        err = float((got - want).abs().max())
+        if not err <= 2e-5:
+            raise AssertionError(f"serve prefill: B4 differs from plain twin by {err}")
+        worst = max(worst, err)
+    print(f"[6] {len(calls)} B4 calls of the serve path == plain twin, max_abs_err {worst:.3g}")
+    del want
+    # (c) the naive-attention prefill on the same weights and tokens
+    cache_len = SERVE["prompt_len"] + SERVE["gen_len"]
+    batch = {"tokens": run.prompts[0]}
+    b4_logits, _ = run.model.prefill(run.params, batch, cache_len=cache_len)
+    naive = dataclasses.replace(run.model, attn_impl="naive")
+    naive_logits, _ = naive.prefill(run.params, batch, cache_len=cache_len)
+    logit_err = float((b4_logits - naive_logits).abs().max())
+    if not logit_err <= 1e-3:
+        raise AssertionError(f"naive and B4 prefill logits differ by {logit_err}")
+    # (d) the routes and the outputs
+    pi = run.router.pi[0]
+    if not np.isfinite(run.router.latency_bound):
+        raise AssertionError(f"plan latency bound {run.router.latency_bound}")
+    if any(pi[j] <= 0 for r in run.replicas for j in r):
+        raise AssertionError(f"routed outside pi's support: {run.replicas}, pi {pi}")
+    for toks in run.tokens:
+        if toks.shape != (SERVE["batch"], SERVE["gen_len"] + 1) or not (
+                (toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"generated tokens {tuple(toks.shape)} out of range")
+    if not bool(torch.isfinite(b4_logits).all()):
+        raise AssertionError("prefill logits are not finite")
+    print(f"[6] naive vs B4 prefill last-position logits: max_abs_err {logit_err:.3g}; "
+          f"routes {run.replicas} inside pi's support {np.round(pi, 3)}, "
+          f"bound {run.router.latency_bound:.3f} s")
+
+    lat = np.asarray(run.latencies)
+    tokens = SERVE["batch"] * SERVE["prompt_len"]
+    print(f"[6] serve wall {serve_s:.3f} s (plan included); prefill "
+          f"{tokens / np.mean(run.prefill_s):.6g} tokens/s "
+          f"({np.mean(run.prefill_s) * 1e3:.3f} ms per {tokens}-token batch); decode "
+          f"{np.mean(run.decode_s) / SERVE['gen_len'] * 1e3:.3f} ms/token at batch "
+          f"{SERVE['batch']}; batch latency mean {lat.mean() * 1e3:.3f} ms, "
+          f"p95 {np.quantile(lat, 0.95) * 1e3:.3f} ms; peak {peak_gib:.2f} GiB")
+
+    # B4 on the path's own inputs, beside its plain twin and the library call
+    args, kwargs, got = calls[-1]
+    q, k, v = args
+    record = dict(max_abs_err=worst, plain_ms=plain_ms, **flash_bound(q, k))
+    fa.flash_attention(q, k, v, **kwargs)  # warm
+    record["ms"], _ = cuda_ms(lambda: fa.flash_attention(q, k, v, **kwargs), reps=5)
+    g = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(g, dim=2),
+                                                v.repeat_interleave(g, dim=2)))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=kwargs["scale"])
+    sdpa()  # warm
+    record["library_ms"], lib_out = cuda_ms(sdpa, reps=5)
+    lib_err = float((lib_out.transpose(1, 2) - got).abs().max())
+    print(f"[6] B4 {tuple(q.shape)} x {tuple(k.shape)} on the path's inputs: kernel "
+          f"{record['ms']:.4f} ms, plain twin {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {record['library_ms']:.4f} ms "
+          f"(|diff| {lib_err:.3g}), bound {record['bound_ms']:.4f} ms "
+          f"({record['bound_flop']:.4g} FLOP, {record['bound_gb']:.4f} GB, "
+          f"{record['bound_by']}), TF32 tensor-core time {record['bound_tf32_ms']:.4f} ms")
+    del calls
+    return sum(prefill_launches), record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)  # keep output if the run is cut
@@ -492,9 +734,11 @@ def main() -> int:
     phase_build()
     worst = phase_kernel_vs_plain(dev)
     phase_gf256_vs_plain(dev)
+    flash_err = phase_flash_vs_plain(dev)
     quick_launches, quick_err = phase_quickstart(dev)
     fleet_launches, record, sol, ks = phase_catalog(dev)
     plane = phase_data_plane(dev, sol, ks)
+    serve_launches, flash = phase_serve(dev)
     kernels = [{
         "name": "fcfs_scan",
         "route": "cuda",
@@ -532,6 +776,22 @@ def main() -> int:
             "bound_by": rec["bound_by"],
             "library_ms": None,  # no PyTorch call computes a GF(256) product
         })
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "parity": "atol 2e-5",
+        "launches": serve_launches,
+        "launches_by_path": {"serve_prefill": serve_launches},
+        "max_abs_err": max(flash_err, flash["max_abs_err"]),
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "bound_tf32_ms": flash["bound_tf32_ms"],
+        "library_ms": flash["library_ms"],  # scaled_dot_product_attention, timed only
+    })
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ from .latency_bound import (
 from .projection import feasible_uniform, project_capped_simplex
 from .queueing import (
     ServiceMoments,
+    exponential_moments,
     node_arrival_rates,
     pk_sojourn_moments,
     shifted_exponential_moments,

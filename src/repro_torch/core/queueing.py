@@ -38,6 +38,13 @@ class ServiceMoments(NamedTuple):
         return self.m2 - (1.0 / self.mu) ** 2
 
 
+def exponential_moments(mu) -> ServiceMoments:
+    """Moments of Exp(mu) service (baselines, and the serving router's
+    replicas)."""
+    mu = torch.as_tensor(mu, dtype=torch.float32)
+    return ServiceMoments(mu=mu, m2=2.0 / mu**2, m3=6.0 / mu**3)
+
+
 def shifted_exponential_moments(shift, rate) -> ServiceMoments:
     """Moments of ``D + Exp(rate)`` service (RTT + bandwidth-limited read)."""
     d = torch.as_tensor(shift, dtype=torch.float32)

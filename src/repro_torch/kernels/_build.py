@@ -3,6 +3,8 @@
 Each ``csrc/*.cu`` file has a plain C interface. It is compiled for
 ``sm_90a`` into ``build/repro_torch/<stem>_<hash>.so``, keyed by a hash of
 the source, so an edited source is rebuilt and an unchanged one is not.
+``ptxas -v`` prints each kernel's registers, spills and shared memory as
+it builds.
 Nothing is built when a module is imported: the kernel wrappers call this
 on their first launch.
 """
@@ -18,7 +20,7 @@ from pathlib import Path
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 

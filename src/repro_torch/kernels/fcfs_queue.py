@@ -133,7 +133,8 @@ def fcfs_scan(
     """FCFS queue scan, run where the tensors live.
 
     Accepts a single system (``t`` (N,), ``masks``/``service`` (N, m),
-    carries (m,)) or a seed batch (a leading (S,) axis on everything).
+    carries (m,)) or a seed batch (a leading (S,) axis on everything), in
+    any layout: a view is made contiguous before the launch.
     ``dep0``/``busy0`` default to idle queues and zero busy time. Returns
     ``(latency, dep, busy)`` with the same leading axes. CUDA tensors run
     the kernel (and add one to ``fcfs_scan.launches``); CPU tensors run
@@ -146,6 +147,10 @@ def fcfs_scan(
     if busy0 is None:
         busy0 = torch.zeros(cshape, dtype=torch.float32, device=t.device)
     if t.is_cuda:
+        # the launcher takes contiguous tensors only; views are copied here
+        t, masks, service, dep0, busy0 = (
+            x.contiguous() for x in (t, masks, service, dep0, busy0)
+        )
         if t.dim() == 1:
             lat, dep, busy = fcfs_scan_cuda(
                 t[None], masks[None], service[None], dep0[None], busy0[None]

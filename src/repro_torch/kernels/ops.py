@@ -20,6 +20,13 @@ reference's ``auto`` picks ``bitplane`` on a TPU, an XLA integer matmul
 that never reaches its Pallas kernel; copied faithfully, the card's path
 would go to ``torch.matmul`` and never run kernels B2 and B3. There is no
 ``pallas`` backend here: it and any other name raise ``ValueError``.
+
+The dispatchers, not the kernels, take the edge cases the reference
+accepts. A product with an empty extent is answered without a launch:
+M, N or the batch 0 gives the empty result, K = 0 gives zeros (an n == k
+code has a (0, k) parity matrix; an empty payload splits into (k, 0)
+rows). Operands are made contiguous before a launch, so a sliced view
+works as it does in the reference; the launchers stay strict.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from repro_torch.storage import rs
 from repro_torch.storage.gf256 import bytes_to_bits, gf_const_to_bitmatrix
 
 from .gf256_matmul import (
+    _check,
     gf256_matmul_batched_cuda,
     gf256_matmul_batched_plain,
     gf256_matmul_cuda,
@@ -47,6 +55,15 @@ def _resolve(backend: str, x: Tensor) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; have auto, {', '.join(BACKENDS)}")
     return backend
+
+
+def _empty_product(a: Tensor, b: Tensor, ndim: int) -> Tensor | None:
+    """The result of a product with an empty extent, or None if it has none:
+    an empty (.., M, N) for M, N or a batch of 0, and zeros for K = 0."""
+    _check(a, b, ndim)
+    if a.numel() and b.numel():
+        return None
+    return torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.uint8, device=a.device)
 
 
 def _parity_to_bytes(c_bits: Tensor) -> Tensor:
@@ -75,8 +92,11 @@ def gf256_matmul(a: Tensor, b: Tensor, *, backend: str = "auto") -> Tensor:
     a = torch.as_tensor(a, dtype=torch.uint8)
     b = torch.as_tensor(b, dtype=torch.uint8)
     backend = _resolve(backend, a)
+    empty = _empty_product(a, b, 2)
+    if empty is not None:
+        return empty
     if backend == "cuda":
-        return gf256_matmul_cuda(a, b)
+        return gf256_matmul_cuda(a.contiguous(), b.contiguous())
     if backend == "ref":
         return gf256_matmul_plain(a, b)
     return gf256_matmul_bitplane(a, b)
@@ -112,14 +132,12 @@ def gf256_matmul_batch(a: Tensor, b: Tensor, *, backend: str = "auto") -> Tensor
     """C (B,M,N) = A (B,M,K) @GF B (B,K,N); bit-exact across backends."""
     a = torch.as_tensor(a, dtype=torch.uint8)
     b = torch.as_tensor(b, dtype=torch.uint8)
-    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]:
-        raise ValueError(
-            f"batched contract needs (B,M,K) x (B,K,N), got "
-            f"{tuple(a.shape)} x {tuple(b.shape)}"
-        )
     backend = _resolve(backend, a)
+    empty = _empty_product(a, b, 3)
+    if empty is not None:
+        return empty
     if backend == "cuda":
-        return gf256_matmul_batched_cuda(a, b)
+        return gf256_matmul_batched_cuda(a.contiguous(), b.contiguous())
     if backend == "ref":
         return gf256_matmul_batched_plain(a, b)
     return gf256_matmul_batch_bitplane(a, b)

@@ -1,0 +1,149 @@
+"""Serving loop: batched generation behind the probabilistic router.
+
+The port of ``repro/launch/serve.py``. It builds the model at the
+reference's serving level O3, whose prefill attention is the chunked path
+(kernel B4 on the card), times one decode step, turns that time into
+service moments for a pool of replicas with a synthetic skew, plans the
+dispatch with JLCM (``Router.plan``), and then, for each batch, routes it
+with Madow sampling (``Router.route``), prefills a random prompt and
+decodes greedily. Weights are random, drawn from ``seed``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --batches 8
+
+runs SmolLM-135M at full width and depth on the card (``--device cpu`` runs
+on the host). On the card TF32 is switched off: the projections are
+float32 matmuls, and TF32 would break parity with the reference.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.core import exponential_moments
+from repro_torch.launch.steps import build_model
+from repro_torch.models import Model
+from repro_torch.serving import ReplicaPool, Router
+from repro_torch.storage.cluster import _device
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What one ``serve`` call did. Times are host seconds around work that
+    ends in a device synchronise."""
+
+    latencies: list[float]  # per batch, scaled by the routed replica's skew
+    replicas: list[list[int]]  # the replicas each batch was routed to
+    prompts: list[Tensor]  # per batch, (batch, prompt_len) token ids
+    tokens: list[Tensor]  # per batch, (batch, gen_len + 1) greedy tokens
+    prefill_s: list[float]  # per batch, the prefill alone
+    decode_s: list[float]  # per batch, the gen_len decode steps
+    step_ms: float  # the timed decode step that sets the service rates
+    router: Router
+    model: Model
+    params: dict
+
+
+def serve(
+    arch: str = "smollm-135m",
+    *,
+    smoke: bool = True,
+    n_replicas: int = 4,
+    batch: int = 4,
+    prompt_len: int = 16,
+    gen_len: int = 16,
+    n_batches: int = 8,
+    hedge: int = 0,
+    device="cuda",
+    seed: int = 0,
+) -> ServeRun:
+    dev = _device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    model = build_model(cfg, dtype=torch.float32, remat="none", opt="O3", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init(gen)
+    cache_len = prompt_len + gen_len
+
+    def prompt() -> Tensor:
+        return torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen, device=dev)
+
+    def positions(p: int) -> Tensor:
+        return torch.full((batch,), p, dtype=torch.int64, device=dev)
+
+    # replica pool: measured step time per replica with synthetic skew
+    logits, caches = model.prefill(params, {"tokens": prompt()}, cache_len=cache_len)
+    tok = torch.argmax(logits, -1)
+    logits, caches = model.decode_step(
+        params, caches, {"token": tok, "pos": positions(prompt_len)})  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = model.decode_step(
+        params, caches, {"token": tok, "pos": positions(prompt_len + 1)})
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    skew = torch.linspace(1.0, 0.6, n_replicas)
+    mu = 1000.0 / (ms * gen_len) * skew
+    pool = ReplicaPool(moments=exponential_moments(mu.to(dev)),
+                       cost=torch.ones((n_replicas,), device=dev))
+    router = Router.plan(pool, torch.tensor([0.3 * float(mu.sum())]), hedge=hedge)
+    print(f"[serve] {arch}: {ms:.2f} ms/token; router pi = "
+          f"{np.round(router.pi[0], 3)} (bound {router.latency_bound:.3f}s)")
+
+    route_gen = torch.Generator().manual_seed(seed + 1)
+    run = ServeRun([], [], [], [], [], [], ms, router, model, params)
+    for bi in range(n_batches):
+        replicas = router.route(0, generator=route_gen)
+        sync()
+        t0 = time.perf_counter()
+        toks = prompt()
+        logits, caches = model.prefill(params, {"tokens": toks}, cache_len=cache_len)
+        tok = torch.argmax(logits, -1)
+        sync()
+        t1 = time.perf_counter()
+        out = [tok]
+        for t in range(gen_len):
+            step = {"token": tok, "pos": positions(prompt_len + t)}
+            logits, caches = model.decode_step(params, caches, step)
+            tok = torch.argmax(logits, -1)
+            out.append(tok)
+        sync()
+        t2 = time.perf_counter()
+        # replica skew modelled as service-rate scaling of the real compute
+        wall = (t2 - t0) / float(skew[min(replicas)])
+        run.latencies.append(wall)
+        run.replicas.append(replicas)
+        run.prompts.append(toks)
+        run.tokens.append(torch.stack(out, dim=1))
+        run.prefill_s.append(t1 - t0)
+        run.decode_s.append(t2 - t1)
+        print(f"[serve] batch {bi}: replica(s) {replicas}, latency {wall * 1e3:.1f} ms")
+    lat = np.asarray(run.latencies)
+    print(f"[serve] mean {lat.mean() * 1e3:.1f} ms  p95 {np.quantile(lat, .95) * 1e3:.1f} ms")
+    return run
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--hedge", type=int, default=0)
+    ap.add_argument("--batches", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    serve(args.arch, smoke=not args.full, hedge=args.hedge, n_batches=args.batches,
+          prompt_len=args.prompt_len, gen_len=args.gen_len, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,225 @@
+"""Core layer primitives: norms, RoPE, GQA attention with its KV cache, and
+the dense MLP.
+
+The port of ``repro/models/layers.py`` for the attention layer kinds. Layers
+are plain functions over parameter trees (nested dicts of tensors); the
+parameters carry the dtype and the device, activations follow. The
+reference's ``pin_batch`` is a GSPMD sharding constraint and has no
+counterpart on one card, so it is dropped. Cross-attention, q/k norms,
+the ``stub`` probe, MLA and M-RoPE wait for ROADMAP A20 (``Model`` refuses
+configurations that need them).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor
+
+from .attention_opt import chunked_sdpa
+from .config import ModelConfig
+
+Params = dict[str, Any]
+
+
+class Ctx(NamedTuple):
+    """Per-call context threaded through the stack."""
+
+    mode: str  # "train" | "prefill" | "decode"
+    positions: Tensor | None = None  # (B,S)
+    decode_pos: Tensor | None = None  # (B,) current write index for decode
+    cache_len: int = 0  # static cache capacity S for decode
+    attn_impl: str = "naive"  # "naive" | "chunked" (kernel B4)
+    attn_q_blk: int = 1024
+    attn_k_blk: int = 1024
+    cache_update: str = "onehot"  # "onehot" | "dus"
+
+
+def _init(gen: torch.Generator, shape, fan_in: int, dtype, device) -> Tensor:
+    x = torch.randn(shape, generator=gen, device=device) / math.sqrt(fan_in)
+    return x.to(dtype)
+
+
+def _to_cache_layout(x: Tensor, s: int) -> Tensor:
+    """Arrange prefill K/V (B, t, ...) into a capacity-s cache buffer.
+
+    If t <= s: pad with zeros (slot p holds token p). If t > s (rolling
+    window buffer): keep the last s tokens, each token p stored at slot
+    p % s — matching the decode-time rolling write."""
+    t = x.shape[1]
+    if t == s:
+        return x
+    if t < s:
+        out = x.new_zeros((x.shape[0], s) + tuple(x.shape[2:]))
+        out[:, :t] = x
+        return out
+    keep = x[:, t - s:]
+    slots = torch.arange(t - s, t, device=x.device) % s
+    out = torch.zeros_like(keep)
+    out[:, slots] = keep
+    return out
+
+
+# --------------------------------------------------------------------- norms
+def rmsnorm_init(d: int, dtype, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps).to(x.dtype)
+    return y * p["scale"]
+
+
+# ---------------------------------------------------------------------- rope
+def rope_angles(
+    positions: Tensor, rot_dim: int, theta: float, sections=None
+) -> tuple[Tensor, Tensor]:
+    """positions (B,S) -> cos/sin (B,S,rot_dim/2)."""
+    if sections is not None:
+        raise NotImplementedError("M-RoPE sections are not ported yet (ROADMAP A20)")
+    half = rot_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    ang = positions.float()[..., None] * freqs  # (B,S,half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+    """x (B,S,H,hd) with rotating first 2*half dims; cos/sin (B,S,half)."""
+    half = cos.shape[-1]
+    rot, keep = x[..., : 2 * half], x[..., 2 * half:]
+    x1, x2 = rot[..., :half], rot[..., half:]
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return torch.cat([out.to(x.dtype), keep], dim=-1)
+
+
+# ----------------------------------------------------------------- attention
+def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
+    d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    return {
+        "wq": _init(gen, (d, h * hd), d, dtype, device),
+        "wk": _init(gen, (d, kh * hd), d, dtype, device),
+        "wv": _init(gen, (d, kh * hd), d, dtype, device),
+        "wo": _init(gen, (h * hd, d), h * hd, dtype, device),
+    }
+
+
+def _write_kv(cache: Tensor, new: Tensor, pos: Tensor, mode: str) -> Tensor:
+    """Write ``new`` (B,1,...) into ``cache`` (B,S,...) at per-batch ``pos``.
+
+    "onehot": arithmetic select — reads+writes the whole cache (baseline);
+    a position outside [0, S) writes nothing, as ``jax.nn.one_hot`` gives.
+    "dus": one row per batch entry, the start clamped into [0, S-1] as
+    ``lax.dynamic_update_slice`` clamps it. Both return a new tensor."""
+    s = cache.shape[1]
+    if mode == "dus":
+        out = cache.clone()
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        out[rows, pos.long().clamp(0, s - 1)] = new[:, 0]
+        return out
+    oh = (torch.arange(s, device=cache.device)[None, :] == pos[:, None]).to(cache.dtype)
+    oh = oh.reshape(oh.shape + (1,) * (cache.dim() - 2))
+    return cache * (1 - oh) + oh * new
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale) -> Tensor:
+    """q (B,Tq,H,hd), k/v (B,Tk,KH,hd) with GQA head grouping."""
+    b, tq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    q = q.reshape(b, tq, kh, g, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
+    logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    return out.reshape(b, tq, h, v.shape[-1])
+
+
+def attn_apply(
+    p: Params,
+    x: Tensor,
+    ctx: Ctx,
+    cfg: ModelConfig,
+    *,
+    window: int | None = None,
+    cache: Params | None = None,
+) -> tuple[Tensor, Params | None]:
+    """Causal self-attention, optionally windowed. Returns (y, new_cache)."""
+    b, t, d = x.shape
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = (x @ p["wq"]).reshape(b, t, h, hd)
+    k = (x @ p["wk"]).reshape(b, t, kh, hd)
+    v = (x @ p["wv"]).reshape(b, t, kh, hd)
+
+    rot_dim = int(cfg.rotary_pct * hd) // 2 * 2
+    if rot_dim > 0:
+        if ctx.mode == "decode":
+            pos_q = ctx.decode_pos[:, None]  # (B,1)
+        elif ctx.positions is not None:
+            pos_q = ctx.positions
+        else:
+            pos_q = torch.arange(t, device=x.device)[None, :].expand(b, t)
+        cos, sin = rope_angles(pos_q, rot_dim, cfg.rope_theta, cfg.mrope_sections)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    scale = 1.0 / math.sqrt(hd)
+    new_cache = None
+
+    if ctx.mode == "decode":
+        assert cache is not None
+        s = cache["k"].shape[1]
+        pos = ctx.decode_pos  # (B,)
+        # rolling buffer when the cache is shorter than the stream (local
+        # attention): keys carry RoPE at absolute positions, slots are
+        # overwritten mod s (Mistral-style sliding window).
+        rolling = window is not None and s <= window
+        write = pos % s if rolling else pos
+        k_cache = _write_kv(cache["k"], k, write, ctx.cache_update)
+        v_cache = _write_kv(cache["v"], v, write, ctx.cache_update)
+        new_cache = {"k": k_cache, "v": v_cache}
+        j = torch.arange(s, device=x.device)[None, :]
+        if rolling:
+            mask = (j <= pos[:, None]) | (pos[:, None] >= s)
+        else:
+            mask = j <= pos[:, None]
+            if window is not None:
+                mask &= j > pos[:, None] - window
+        y = _sdpa(q, k_cache, v_cache, mask[:, None, :], scale)
+    else:  # train / prefill: full causal (optionally windowed) self-attn
+        if ctx.attn_impl == "chunked":
+            y = chunked_sdpa(
+                q, k, v, scale, causal=True, window=window,
+                q_blk=ctx.attn_q_blk, k_blk=ctx.attn_k_blk,
+            )
+        else:
+            i = torch.arange(t, device=x.device)[:, None]
+            j = torch.arange(t, device=x.device)[None, :]
+            mask = j <= i
+            if window is not None:
+                mask &= j > i - window
+            y = _sdpa(q, k, v, mask[None].expand(b, t, t), scale)
+        if ctx.mode == "prefill":
+            s = ctx.cache_len or t
+            if window is not None:
+                s = min(s, window)
+            new_cache = {"k": _to_cache_layout(k, s), "v": _to_cache_layout(v, s)}
+
+    return y.reshape(b, t, h * hd) @ p["wo"], new_cache
+
+
+# ----------------------------------------------------------------------- MLP
+def mlp_init(gen: torch.Generator, d: int, ff: int, dtype, device) -> Params:
+    return {
+        "w_gate": _init(gen, (d, ff), d, dtype, device),
+        "w_up": _init(gen, (d, ff), d, dtype, device),
+        "w_down": _init(gen, (ff, d), ff, dtype, device),
+    }
+
+
+def mlp_apply(p: Params, x: Tensor) -> Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

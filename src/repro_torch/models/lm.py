@@ -1,0 +1,141 @@
+"""Top-level language model: embeddings, stack, head and the serve steps.
+
+The port of ``repro/models/lm.py`` for decoder-only models of the attention
+kinds. Batch dict keys, as in the reference:
+
+  forward / prefill: tokens (B,S) int [, positions]
+  decode:            token (B,) int, pos (B,) int
+
+``loss`` (and its chunked cross entropy) waits for the training slice;
+encoder-decoder models and the VLM's ``patch_embeds`` wait for the rest of
+ROADMAP A20.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import Tensor
+
+from .config import ModelConfig
+from .layers import Ctx, rmsnorm, rmsnorm_init
+from .stack import _check_kind, stack_apply, stack_init
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    dtype: torch.dtype = torch.float32
+    device: torch.device | str = "cuda"
+    attn_impl: str = "naive"  # "naive" | "chunked" (kernel B4)
+    attn_q_blk: int = 1024
+    attn_k_blk: int = 1024
+    cache_update: str = "onehot"  # decode KV write: "onehot" | "dus"
+
+    def __post_init__(self):
+        cfg = self.cfg
+        for kind in cfg.layer_kinds:
+            _check_kind(kind)
+        unported = [name for name, on in (
+            ("encoder-decoder", cfg.encoder_layers), ("q/k norm", cfg.qk_norm),
+            ("M-RoPE", cfg.mrope_sections is not None),
+            (f"attn_impl {self.attn_impl!r}", self.attn_impl not in ("naive", "chunked")),
+        ) if on]
+        if unported:
+            raise NotImplementedError(f"{', '.join(unported)}: not ported yet (ROADMAP A20)")
+
+    # ------------------------------------------------------------- params
+    def init(self, gen: torch.Generator) -> Params:
+        """Random parameters drawn from ``gen`` (on the model's device), with
+        the reference's distributions: N(0, 1/fan_in) projections, N(0, 0.02²)
+        embeddings, unit norm scales."""
+        cfg, dev = self.cfg, self.device
+        embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev) * 0.02
+        params: Params = {
+            "embed": embed.to(self.dtype),
+            "stack": stack_init(gen, cfg, self.dtype, dev),
+            "ln_f": rmsnorm_init(cfg.d_model, self.dtype, dev),
+        }
+        if not cfg.tie_embeddings:
+            head = torch.randn((cfg.d_model, cfg.vocab), generator=gen, device=dev) * 0.02
+            params["lm_head"] = head.to(self.dtype)
+        return params
+
+    # ------------------------------------------------------------ helpers
+    def _embed(self, params: Params, batch: dict) -> Tensor:
+        return params["embed"][batch["tokens"]]  # (B,S,d)
+
+    def _head(self, params: Params, h: Tensor) -> Tensor:
+        h = rmsnorm(params["ln_f"], h, self.cfg.norm_eps)
+        w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return h @ w
+
+    def _ctx(self, batch: dict, mode: str, cache_len: int = 0) -> Ctx:
+        return Ctx(
+            mode=mode,
+            positions=batch.get("positions"),
+            decode_pos=batch.get("pos"),
+            cache_len=cache_len,
+            attn_impl=self.attn_impl,
+            attn_q_blk=self.attn_q_blk,
+            attn_k_blk=self.attn_k_blk,
+            cache_update=self.cache_update,
+        )
+
+    # -------------------------------------------------------------- train
+    @torch.no_grad()
+    def forward_logits(self, params: Params, batch: dict) -> Tensor:
+        """Full-sequence logits (B,S,V). The reference also returns the MoE
+        aux loss, which is 0 for the attention kinds and is dropped here."""
+        x = self._embed(params, batch)
+        h, _ = stack_apply(params["stack"], x, self._ctx(batch, "train"), self.cfg)
+        return self._head(params, h)
+
+    # -------------------------------------------------------------- serve
+    @torch.no_grad()
+    def prefill(
+        self, params: Params, batch: dict, cache_len: int | None = None
+    ) -> tuple[Tensor, Params]:
+        """Returns (last-position logits (B,V), caches). ``cache_len``
+        reserves decode capacity beyond the prompt length."""
+        x = self._embed(params, batch)
+        ctx = self._ctx(batch, "prefill", cache_len or batch["tokens"].shape[1])
+        h, caches = stack_apply(params["stack"], x, ctx, self.cfg)
+        logits = self._head(params, h[:, -1:, :])[:, 0]
+        return logits, caches
+
+    @torch.no_grad()
+    def decode_step(
+        self, params: Params, caches: Params, batch: dict
+    ) -> tuple[Tensor, Params]:
+        """One token: batch = {token (B,), pos (B,)}. Returns (logits, caches)."""
+        x = params["embed"][batch["token"]][:, None, :]  # (B,1,d)
+        h, new_caches = stack_apply(
+            params["stack"], x, self._ctx(batch, "decode"), self.cfg, caches
+        )
+        return self._head(params, h)[:, 0], new_caches
+
+    # ---------------------------------------------------- cache allocation
+    def empty_caches(self, batch_size: int, cache_len: int) -> Params:
+        """Zeroed decode caches in the layout ``prefill`` returns."""
+        cfg = self.cfg
+
+        def one(kind: str, lead: tuple = ()) -> Params:
+            s = cache_len if kind != "local" else min(cache_len, cfg.window)
+            shape = lead + (batch_size, s, cfg.n_kv_heads, cfg.head_dim_)
+            return {"self": {
+                "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            }}
+
+        caches: Params = {
+            "prefix": [one(kind) for kind in cfg.prefix],
+            "period": None,
+            "suffix": [one(kind) for kind in cfg.suffix],
+        }
+        if cfg.n_periods > 0:
+            caches["period"] = tuple(one(kind, (cfg.n_periods,)) for kind in cfg.period)
+        return caches

@@ -1,0 +1,140 @@
+"""Layer-stack machinery: blocks and the prefix / period / suffix stack.
+
+The port of ``repro/models/stack.py`` for the attention kinds (``attn``,
+``dense``, ``local``). The parameter tree is the reference's: ``prefix``
+and ``suffix`` are lists of blocks, and ``period`` is a list with one entry
+per position of the repeating pattern, each stacked on a leading
+``n_periods`` axis, so weights carry across one for one. Where the
+reference scans the period with ``lax.scan``, the port walks the layers in
+a Python loop and stacks each period position's caches on the same leading
+axis. Other kinds (MoE, MLA, RG-LRU, RWKV6, encoder and cross-attention
+blocks) raise ``NotImplementedError`` until ROADMAP A20 ports them.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import Tensor
+
+from .config import ModelConfig
+from .layers import (
+    Ctx,
+    attn_apply,
+    attn_init,
+    mlp_apply,
+    mlp_init,
+    rmsnorm,
+    rmsnorm_init,
+)
+
+Params = dict[str, Any]
+PORTED_KINDS = ("attn", "dense", "local")
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet (ROADMAP A20); "
+            f"the port runs {PORTED_KINDS}"
+        )
+
+
+def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype, device) -> Params:
+    _check_kind(kind)
+    d = cfg.d_model
+    return {
+        "ln1": rmsnorm_init(d, dtype, device),
+        "ln2": rmsnorm_init(d, dtype, device),
+        "attn": attn_init(gen, cfg, dtype, device),
+        "mlp": mlp_init(gen, d, cfg.d_ff, dtype, device),
+    }
+
+
+def block_apply(
+    p: Params,
+    kind: str,
+    x: Tensor,
+    ctx: Ctx,
+    cfg: ModelConfig,
+    cache: Params | None,
+) -> tuple[Tensor, Params | None]:
+    """Pre-norm residual attention + dense MLP block. Returns (x, new_cache)."""
+    _check_kind(kind)
+    window = cfg.window if kind == "local" else None
+    self_cache = cache.get("self") if cache else None
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, new_self = attn_apply(p["attn"], h, ctx, cfg, window=window, cache=self_cache)
+    x = x + y
+    new_cache = {"self": new_self} if new_self is not None else None
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h), new_cache
+
+
+def _stack_trees(trees: list):
+    """Stack a list of like-shaped trees on a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {key: _stack_trees([t[key] for t in trees]) for key in first}
+    return torch.stack(trees)
+
+
+def _row(tree, i: int):
+    """Entry ``i`` of a tree stacked on its leading axis."""
+    if isinstance(tree, dict):
+        return {key: _row(val, i) for key, val in tree.items()}
+    return tree[i]
+
+
+# ------------------------------------------------------------------- stack
+def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
+    """Blocks drawn in order from ``gen``: prefix, period (position by
+    position, each over its ``n_periods`` layers), suffix."""
+    params: Params = {"prefix": [], "suffix": []}
+    for kind in cfg.prefix:
+        params["prefix"].append(block_init(gen, kind, cfg, dtype, device))
+    if cfg.n_periods > 0:
+        params["period"] = [
+            _stack_trees([block_init(gen, kind, cfg, dtype, device)
+                          for _ in range(cfg.n_periods)])
+            for kind in cfg.period
+        ]
+    for kind in cfg.suffix:
+        params["suffix"].append(block_init(gen, kind, cfg, dtype, device))
+    return params
+
+
+def stack_apply(
+    params: Params,
+    x: Tensor,
+    ctx: Ctx,
+    cfg: ModelConfig,
+    caches: Params | None = None,
+) -> tuple[Tensor, Params | None]:
+    """Run the full stack. Returns (x, new_caches); caches only in prefill
+    and decode, in the reference's layout."""
+    want_cache = ctx.mode in ("prefill", "decode")
+    new_caches: Params = {"prefix": [], "period": None, "suffix": []}
+
+    for i, kind in enumerate(cfg.prefix):
+        c = caches["prefix"][i] if caches else None
+        x, nc = block_apply(params["prefix"][i], kind, x, ctx, cfg, c)
+        new_caches["prefix"].append(nc)
+
+    if cfg.n_periods > 0:
+        rows: list[list] = [[] for _ in cfg.period]
+        for layer in range(cfg.n_periods):
+            for pos, kind in enumerate(cfg.period):
+                c = _row(caches["period"][pos], layer) if caches else None
+                p = _row(params["period"][pos], layer)
+                x, nc = block_apply(p, kind, x, ctx, cfg, c)
+                rows[pos].append(nc)
+        if want_cache:
+            new_caches["period"] = tuple(_stack_trees(r) for r in rows)
+
+    for i, kind in enumerate(cfg.suffix):
+        c = caches["suffix"][i] if caches else None
+        x, nc = block_apply(params["suffix"][i], kind, x, ctx, cfg, c)
+        new_caches["suffix"].append(nc)
+
+    return x, (new_caches if want_cache else None)

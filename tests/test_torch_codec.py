@@ -347,3 +347,44 @@ def test_catalog_plan_encode_fail_decode_matches_reference(catalog_plan):
     for f, got, w in zip(hurt, out, want):
         np.testing.assert_array_equal(got.numpy(), w)
         np.testing.assert_array_equal(got.numpy(), data[f])
+
+
+# ------------------------------------------- empty extents and views (C1, C2)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_n_equals_k_encode_is_the_data_as_in_reference(backend):
+    """An n == k group has a (0, k) parity matrix: no redundancy."""
+    data = _rand(5, 4, 6, 33)
+    got = encode_batch(_t(data), 6, backend=backend).numpy()
+    np.testing.assert_array_equal(got, np.asarray(ref_codec.encode_batch(jnp.asarray(data), 6)))
+    np.testing.assert_array_equal(got, data)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_empty_payload_encodes_as_in_reference(backend):
+    from repro.kernels import rs_encode as ref_rs_encode
+    from repro_torch.kernels import rs_encode
+
+    rows = rs.pad_and_split(b"", 6)
+    assert rows.shape == (6, 0)
+    got = rs_encode(_t(rows), 12, backend=backend).numpy()
+    want = np.asarray(ref_rs_encode(rows, 12, backend="ref"))
+    assert got.shape == want.shape == (12, 0)
+    got = encode_batch(_t(np.zeros((3, 6, 0), np.uint8)), 12, backend=backend)
+    assert tuple(got.shape) == (3, 12, 0)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_decode_batch_of_a_sliced_view_matches_reference(backend):
+    n, k = 8, 5
+    data = _rand(21, 4, k, 64)
+    coded = np.stack([_ref_encode(d, n) for d in data])
+    chunks = _t(coded)[:, 2:2 + k]
+    assert not chunks.is_contiguous()
+    pats = [list(range(2, 2 + k))] * len(data)
+    got = decode_batch(chunks, pats, n, k, backend=backend).numpy()
+    want = np.asarray(ref_codec.decode_batch(jnp.asarray(coded)[:, 2:2 + k], pats, n, k,
+                                             backend="ref"))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, data)

@@ -125,3 +125,14 @@ def test_plain_twin_handles_zero_requests():
     lat, dep, busy = fcfs_scan_plain(t, masks, service, dep0, torch.zeros((2, 3)))
     assert lat.shape == (2, 0)
     assert torch.equal(dep, dep0)
+
+
+def test_strided_views_match_contiguous_and_reference():
+    """A view (every other request, every other node) runs as its copy."""
+    t, masks, service = _workload(9, 3, 64, 8)
+    view = fcfs_scan(torch.from_numpy(t)[:, ::2], torch.from_numpy(masks)[:, ::2, ::2],
+                     torch.from_numpy(service)[:, ::2, ::2])
+    ref, port = _both(np.ascontiguousarray(t[:, ::2]), np.ascontiguousarray(masks[:, ::2, ::2]),
+                      np.ascontiguousarray(service[:, ::2, ::2]))
+    _assert_parity(ref, [x.numpy() for x in view])
+    _assert_parity(port, [x.numpy() for x in view])

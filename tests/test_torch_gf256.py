@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.kernels.ops as ops_ref
 import repro.storage.gf256 as ref_gf
 from repro.kernels import gf256_matmul_pallas, gf256_matmul_pallas_batched
 from repro.kernels import gf256_matmul_ref as ref_matmul
@@ -208,3 +209,77 @@ def test_rs_paths_match_reference(backend):
         want = np.asarray(ref_rs_decode(coded[ids], ids, n, k, backend="ref"))
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, data)
+
+
+# ------------------------------------------- empty extents and views (C1, C2)
+
+def gf256_matmul_batch_ref(a, b):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return np.asarray(ops_ref.gf256_matmul_batch(a, b, backend="ref"))
+
+
+EMPTY = [(0, 4, 5), (3, 4, 0), (3, 0, 5), (0, 0, 0)]
+EMPTY_BATCHED = [(2, 3, 0, 5), (0, 3, 4, 5), (2, 0, 4, 5), (2, 3, 4, 0)]
+
+
+@pytest.mark.parametrize("backend", ["auto", "ref", "bitplane", "cuda"])
+@pytest.mark.parametrize("m,k,n", EMPTY)
+def test_empty_extents_match_reference_without_a_launch(m, k, n, backend):
+    """M or N = 0 gives the empty result and K = 0 zeros, as the reference
+    does. The dispatcher answers before any backend runs: even ``cuda``,
+    whose launcher refuses CPU tensors and empty operands, is not reached."""
+    a, b = _rand(m, m, k), _rand(n, k, n)
+    got = gf256_matmul(_t(a), _t(b), backend=backend)
+    want = np.asarray(ops_ref.gf256_matmul(a, b, backend="ref"))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.shape == (m, n)
+
+
+@pytest.mark.parametrize("backend", ["auto", "ref", "bitplane", "cuda"])
+@pytest.mark.parametrize("bsz,m,k,n", EMPTY_BATCHED)
+def test_empty_batched_extents_match_reference(bsz, m, k, n, backend):
+    a, b = _rand(m, bsz, m, k), _rand(n, bsz, k, n)
+    got = gf256_matmul_batch(_t(a), _t(b), backend=backend)
+    want = np.asarray(ops_ref.gf256_matmul_batch(a, b, backend="ref"))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_empty_extents_still_check_shapes():
+    with pytest.raises(ValueError):
+        gf256_matmul(_t(_rand(0, 0, 4)), _t(_rand(1, 3, 5)))
+    with pytest.raises(ValueError):
+        gf256_matmul_batch(_t(_rand(0, 2, 3, 0)), _t(_rand(1, 3, 0, 5)))
+
+
+def test_launchers_stay_strict_on_empty_operands():
+    with pytest.raises(ValueError):
+        gf256_matmul_cuda(_t(_rand(0, 0, 4)), _t(_rand(1, 4, 5)))
+
+
+def test_views_reach_the_kernel_contiguous(monkeypatch):
+    """The ``cuda`` dispatch hands the launchers contiguous operands, so a
+    sliced view works as it does in the reference (the launchers raise on
+    anything else). A spy stands in for the launchers on the CPU."""
+    seen = []
+
+    def spy(plain):
+        def run(a, b):
+            seen.append(a.is_contiguous() and b.is_contiguous())
+            return plain(a, b)
+        return run
+
+    monkeypatch.setattr(ops, "gf256_matmul_cuda", spy(gf256_matmul_plain))
+    monkeypatch.setattr(ops, "gf256_matmul_batched_cuda", spy(gf256_matmul_batched_plain))
+    a, b = _rand(5, 6, 8), _rand(6, 8, 40)
+    a_view, b_view = _t(a).T.contiguous().T, _t(b)[:, ::2]
+    assert not a_view.is_contiguous() and not b_view.is_contiguous()
+    got = gf256_matmul(a_view, b_view, backend="cuda")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref_matmul(a, b[:, ::2])))
+    a3, b3 = _t(b)[None, :, 1:7].transpose(1, 2)[:, :, :6], _t(b)[None, :6, ::3]
+    assert not a3.is_contiguous() and not b3.is_contiguous()
+    got = gf256_matmul_batch(a3, b3, backend="cuda")
+    want = gf256_matmul_batch_ref(b[None, :, 1:7].transpose(0, 2, 1)[:, :, :6],
+                                  b[None, :6, ::3])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert seen == [True, True]
