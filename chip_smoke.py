@@ -9,14 +9,21 @@ Phases, each raising on failure:
    ``build/repro_torch/``), one nvcc per source, started together: the
    FCFS scan (``fcfs_queue.cu``, kernel B1), the GF(256) product
    (``gf256_matmul.cu``, kernels B2 and B3) and flash attention
-   (``flash_attention.cu``, kernel B4). Print each build's seconds and the
-   card's name and power limit.
+   (``flash_attention.cu``, kernel B4), and this script's two probes
+   (``PROBES``). nvcc's ``-Xptxas -v`` lines give every instance's
+   registers, spills and shared memory. Print each build's seconds and the
+   card's name and power limit. Then the probes measure two limits no
+   table gives: B1's serial chain alone (one thread, FLEET_REQUESTS steps
+   of ``dep = max(t, dep) + s``; CUDA events and SM cycles) and the rate
+   ``mma.sync`` reaches on TF32 (the instruction B4's products use, every
+   SM busy with independent accumulators).
 2. Hold B1 against its plain PyTorch twin on the card: random, heavily
    loaded inputs at (S, N, m) = (64, 2048, 12), (5, 128, 6) and
    (3, 256, 40) (the kernel's wide instance), and unbatched at (2048, 12),
    all through ``fcfs_scan``, with carried queue state and ~5% empty mask
    rows, must give bitwise-equal latency and dep, and busy within rtol 1e-6;
-   so must a strided view of the last case.
+   so must a strided view of the last case, and uint8 masks whose true
+   bytes run from 1 to 255, at m = 12 and 40.
 2b. Hold B2 and B3 against their plain twins, bitwise, on random bytes
    through ``ops.gf256_matmul`` / ``ops.gf256_matmul_batch`` with the
    default backend: the sweep shapes of ``tests/test_kernels.py``, a
@@ -27,9 +34,11 @@ Phases, each raising on failure:
    byte-exact through B3.
 2c. Hold B4 against its plain twin on random normal inputs: the sweep,
    windows and bf16 case of ``tests/test_kernels.py::TestFlashAttention``
-   (atol 2e-5, bf16 3e-2), unequal and ragged lengths, a non-causal case,
-   and SmolLM-135M's prefill shape (4, 2016, 9, 3, 64); non-causal
-   attention that needs key padding must raise ``ValueError``.
+   (atol 2e-5, bf16 3e-2), bf16 with a window at the other head widths
+   the kernel is built for (8, 32, 64), unequal and ragged lengths, a
+   non-causal case, and SmolLM-135M's prefill shape (4, 2016, 9, 3, 64),
+   with that shape's 3xTF32 bound; non-causal attention that needs key
+   padding must raise ``ValueError``.
 3. Quickstart twin: three files (k = 6, 7, 4) solved at theta = 0.5 and
    200, then simulated with 20000 requests; the simulated mean must stay
    within the bound x 1.05, the claim ``examples/quickstart.py`` asserts.
@@ -37,7 +46,8 @@ Phases, each raising on failure:
    aggregate ~0.118 req/s) on the 12-node testbed at theta = 2: the solve
    must descend monotonically and stop within 250 iterations (fig8's
    claims), and a fleet of 256 seeds x 100000 requests must go through the
-   kernel with a finite mean latency within the bound x 1.05.
+   kernel with a finite mean latency within the bound x 1.05. B1 is timed
+   on the fleet's inputs beside its byte bound and the chain phase 1 timed.
 5. The data plane on phase 4's plan: ``CodecPlan.from_solution``; a 4 MiB
    payload per file (32 Tahoe segments of 128 KiB) from a seeded generator
    on the card, split as ``pad_and_split`` does; ``encode_batch`` once per
@@ -55,7 +65,19 @@ Phases, each raising on failure:
    logits within 1e-3; every routed replica must lie in pi's support and
    the plan's bound must be finite. B4 is timed on the path's own inputs
    beside its plain twin and ``scaled_dot_product_attention`` (timed as a
-   yardstick only; the port never calls it).
+   yardstick only; the port never calls it), against its 3xTF32 bound and
+   the time of the same three passes at the rate phase 1 measured.
+
+The bounds (``bound``, ``flash_bound``) are the least time the card could
+take for the work: each input read once and each output written once at
+3.35 TB/s, or the operations at the peak rate of the type the design
+computes in. B4 computes float32 attention as three TF32 tensor-core
+passes (3xTF32), so its bound is 3 x 2 x 2 x hd FLOP per visible (row,
+key) pair at 495 TFLOP/s; the one-pass TF32, float32-outside-the-tensor-
+cores and byte times stand beside it as fields. B1's bound is its bytes.
+The probes' measurements are printed beside these bounds and are not
+bounds themselves: they say what this card reaches, not what it cannot
+beat.
 
 In phases 3 to 6 every launch count is set to 0 just before each
 main-path call (simulator, encode, decode, prefill) and read just after;
@@ -72,6 +94,7 @@ line. It needs a CUDA card, and fails without one.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -88,6 +111,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import JLCMProblem, solve  # noqa: E402
 from repro_torch.kernels import fcfs_queue, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels._build import BUILD_DIR, build_library  # noqa: E402
 from repro_torch.kernels.fcfs_queue import (  # noqa: E402
     fcfs_scan,
     fcfs_scan_cuda,
@@ -129,10 +153,65 @@ COUNTERS = {"fcfs_scan": fcfs_scan, "gf256_matmul": gf256_matmul_cuda,
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12  # tensor cores, dense
+TF32_PASSES = 3  # B4's float32 path: small*big + big*small + big*big
 FLASH_SHAPE = (4, 2016, 9, 3, 64)  # SmolLM-135M's prefill in phase 6: (B, T, H, KH, hd)
 # phase 6: SmolLM-135M serving 4 replicas; prompt + generation fill its
 # published 2048-token context
 SERVE = dict(n_replicas=4, batch=4, prompt_len=2016, gen_len=32, n_batches=8, hedge=0)
+MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
+# Phase 1's probes, built like the kernels (into build/repro_torch/). They
+# measure two limits the published table does not give: the latency of B1's
+# carried chain, and the TF32 rate mma.sync reaches.
+PROBES = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// B1's walker chain alone: one thread, n steps of dep = max(t, dep) + s,
+// the walker's own two operations; t rises by a shorter chain of its own.
+// cycles[0] gets the SM cycles of the loop.
+__global__ void chain_kernel(float* out, long long* cycles, int n) {
+  float dep = 0.0f, t = 0.0f;
+  const long long c0 = clock64();
+  for (int i = 0; i < n; ++i) {
+    dep = fmaxf(t, dep) + 0.75f;
+    t += 1.0f;
+  }
+  const long long c1 = clock64();
+  out[0] = dep;
+  cycles[0] = c1 - c0;
+}
+
+// mma.sync m16n8k8 TF32, B4's product instruction: each warp keeps 8
+// independent accumulators in flight for `iters` steps.
+__global__ void __launch_bounds__(256) mma_kernel(float* out, int iters) {
+  uint32_t a[4], b[2];
+  for (int r = 0; r < 4; ++r) a[r] = __float_as_uint(1.0f + 1e-3f * (threadIdx.x % 7 + r));
+  for (int r = 0; r < 2; ++r) b[r] = __float_as_uint(1.0f - 1e-3f * (threadIdx.x % 5 + r));
+  float acc[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+          : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]), "+f"(acc[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  float sum = 0.0f;
+  for (int j = 0; j < 8; ++j) sum += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
+extern "C" int chain_probe(void* out, void* cycles, int n, void* stream) {
+  chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((float*)out, (long long*)cycles, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mma_probe(void* out, int blocks, int iters, void* stream) {
+  mma_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((float*)out, iters);
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def paper_catalog(r: int = 1000, file_mb: float = 150.0, device="cuda"):
@@ -273,23 +352,26 @@ def gf_bound(batch: int, m: int, k: int, n: int) -> dict:
 
 
 def flash_bound(q, k) -> dict:
-    """The least time for one causal attention call: q, k, v read once and
-    the output written once, or its float32 operations at the card's peak
-    non-tensor rate: 2 x 2 x hd per (query row, visible key) pair, the
-    pairs counted from the causal mask. The TF32 tensor-core time for the
-    same operations is kept beside it."""
+    """The least time for one causal float32 attention call on B4's design:
+    q, k, v read once and the output written once, or its operations,
+    2 x 2 x hd per (query row, visible key) pair (the pairs counted from
+    the causal mask), done as TF32_PASSES tensor-core passes at the TF32
+    rate. Kept beside it: one TF32 pass, the same FLOP in float32 outside
+    the tensor cores, and the bytes."""
     b, tq, h, hd = q.shape
     pairs = int(np.minimum(np.arange(1, tq + 1), k.shape[1]).sum())
     n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     n_ops = 4 * hd * pairs * b * h
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    ops_ms = TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e3
     return dict(
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         bound_gb=n_bytes / 1e9,
         bound_flop=n_ops,
+        bound_bytes_ms=bytes_ms,
         bound_tf32_ms=n_ops / TF32_OPS_PER_S * 1e3,
+        bound_fp32_ms=n_ops / FP32_OPS_PER_S * 1e3,
     )
 
 
@@ -317,15 +399,28 @@ def hold_gf_against_plain(calls, plain, kernel, label: str) -> dict:
     return record
 
 
-def phase_build() -> None:
+def load_probes():
+    """Build (once per source hash) and load the probes."""
+    source = BUILD_DIR / "chip_smoke_probes.cu"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source.write_text(PROBES)
+    lib = build_library(source)
+    lib.chain_probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    lib.mma_probe.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.chain_probe.restype = lib.mma_probe.restype = ctypes.c_int
+    return lib
+
+
+def phase_build():
+    """Build the three sources and the probes in parallel; return the probes."""
     def timed(build):
         t0 = time.perf_counter()
-        build()
-        return time.perf_counter() - t0
+        out = build()
+        return time.perf_counter() - t0, out
 
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-        fcfs_s, gf_s, fa_s = pool.map(
-            timed, [fcfs_queue.load_library, load_gf256, fa.load_library])
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
+        (fcfs_s, _), (gf_s, _), (fa_s, _), (probe_s, probes) = pool.map(
+            timed, [fcfs_queue.load_library, load_gf256, fa.load_library, load_probes])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
@@ -333,7 +428,42 @@ def phase_build() -> None:
     print(f"[1] fcfs kernel built/loaded in {fcfs_s:.3f} s")
     print(f"[1] gf256 kernels built/loaded in {gf_s:.3f} s")
     print(f"[1] flash attention kernel built/loaded in {fa_s:.3f} s")
+    print(f"[1] probes built/loaded in {probe_s:.3f} s")
     print(card)
+    return probes
+
+
+def phase_limits(dev, probes) -> dict:
+    """Time B1's serial chain alone and mma.sync's TF32 rate on this card."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.zeros(MMA_BLOCKS_PER_SM * 256 * torch.cuda.get_device_properties(dev)
+                      .multi_processor_count, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def launched(err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"probe launch failed: cudaError_t {err}")
+
+    chain = lambda: launched(probes.chain_probe(
+        out.data_ptr(), cycles.data_ptr(), FLEET_REQUESTS, stream))
+    chain()  # warm
+    chain_ms, _ = cuda_ms(chain, reps=5)
+    chain_cycles = int(cycles.item()) / FLEET_REQUESTS
+    blocks = out.numel() // 256
+    mma = lambda: launched(probes.mma_probe(out.data_ptr(), blocks, MMA_ITERS, stream))
+    mma()  # warm
+    mma_ms, _ = cuda_ms(mma, reps=5)
+    mma_flop = blocks * 8 * MMA_ITERS * 8 * 2 * 16 * 8 * 8  # 8 warps, 8 mma a step
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("mma probe gave non-finite sums")
+    limits = dict(chain_ms=chain_ms, chain_cycles=chain_cycles,
+                  mma_tflops=mma_flop / (mma_ms * 1e-3) / 1e12)
+    print(f"[1] B1's serial chain alone, one thread, {FLEET_REQUESTS} steps of "
+          f"dep = max(t, dep) + s: {chain_ms:.4f} ms, {chain_cycles:.3f} SM cycles a step")
+    print(f"[1] mma.sync m16n8k8 TF32 on {blocks} blocks of 8 warps, 8 accumulators a "
+          f"warp: {limits['mma_tflops']:.1f} TFLOP/s ({mma_ms:.4f} ms for "
+          f"{mma_flop:.4g} FLOP; the table's TF32 peak is {TF32_OPS_PER_S / 1e12:.0f})")
+    return limits
 
 
 def phase_kernel_vs_plain(dev) -> float:
@@ -355,6 +485,17 @@ def phase_kernel_vs_plain(dev) -> float:
                            service[::2].contiguous(), dep0, busy0)
     worst = max(worst, check_parity(view, want, "strided view"))
     print(f"[2] strided view {tuple(service[::2].shape)}: kernel == plain twin")
+    # uint8 masks: any non-zero byte, not only 1, means the node serves
+    for lead, n, m in [((8,), 1024, 12), ((3,), 256, 40)]:
+        t, masks, service, dep0, busy0 = random_fcfs_inputs(gen, lead, n, m, dev)
+        bytes_ = masks.to(torch.uint8) * torch.randint(
+            1, 256, masks.shape, generator=gen, device=dev, dtype=torch.uint8)
+        got = fcfs_scan(t, bytes_, service, dep0, busy0)
+        worst = max(worst, check_parity(
+            got, fcfs_scan_plain(t, bytes_, service, dep0, busy0), f"uint8 masks {lead}"))
+        check_parity(got, fcfs_scan_plain(t, masks, service, dep0, busy0), "bool masks")
+        print(f"[2] {tuple(service.shape)} uint8 masks of bytes 0..255 "
+              f"({int((bytes_ > 1).sum())} above 1): kernel == plain twin")
     return worst
 
 
@@ -429,6 +570,8 @@ def phase_flash_vs_plain(dev) -> float:
                dict(scale=0.25, window=w, q_blk=16, k_blk=16), 2e-5) for w in (8, 24)]
     cases.append(("bf16", qkv_on(gen, dev, 1, 32, 2, 2, 16, dtype=torch.bfloat16),
                   dict(scale=0.25, q_blk=16, k_blk=16), 3e-2))
+    cases += [(f"bf16 hd={hd}", qkv_on(gen, dev, 1, 80, 6, 2, hd, dtype=torch.bfloat16),
+               dict(scale=hd**-0.5, window=40, q_blk=16, k_blk=16), 3e-2) for hd in (8, 32, 64)]
     cases += [(f"Tq={tq} Tk={tk} window {w}", qkv_on(gen, dev, 2, tq, 6, 2, 16, tk=tk),
                dict(scale=0.25, window=w, q_blk=16, k_blk=16), 2e-5)
               for tq, tk, w in [(24, 40, None), (40, 24, None), (40, 24, 8)]]
@@ -454,6 +597,12 @@ def phase_flash_vs_plain(dev) -> float:
         if q.dtype == torch.float32:
             worst = max(worst, err)
         print(f"[2c] B4 {label}: kernel == plain twin, max_abs_err {err:.3g} (atol {atol})")
+        if label.startswith("SmolLM"):
+            fb = flash_bound(q, k)
+            print(f"[2c] B4 {FLASH_SHAPE} bound {fb['bound_ms']:.4f} ms (3xTF32, "
+                  f"{fb['bound_flop']:.4g} FLOP x {TF32_PASSES}); one TF32 pass "
+                  f"{fb['bound_tf32_ms']:.4f} ms, float32 off the tensor cores "
+                  f"{fb['bound_fp32_ms']:.4f} ms, bytes {fb['bound_bytes_ms']:.4f} ms")
     q, k, v = qkv_on(gen, dev, 1, 50, 2, 2, 8)
     try:
         fa.flash_attention(q, k, v, scale=0.3, causal=False, q_blk=16, k_blk=16)
@@ -491,7 +640,7 @@ def phase_quickstart(dev) -> tuple[int, float]:
     return launches, worst
 
 
-def phase_catalog(dev) -> tuple[int, dict, object, torch.Tensor]:
+def phase_catalog(dev, limits: dict) -> tuple[int, dict, object, torch.Tensor]:
     cluster = tahoe_testbed(device=dev)
     lam, ks, chunk = paper_catalog(1000, device=dev)
     eff_chunk = float(np.average(chunk, weights=lam.cpu().numpy()))
@@ -538,8 +687,10 @@ def phase_catalog(dev) -> tuple[int, dict, object, torch.Tensor]:
           f"fcfs launches {launches}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     record = hold_against_plain(calls, "4", time_it=True)
     print(f"[4] {tuple(calls[-1][0][2].shape)} on the fleet's inputs: kernel "
-          f"{record['ms']:.3f} ms, plain twin {record['plain_ms']:.1f} ms, bound "
-          f"{record['bound_ms']:.3f} ms ({record['bound_gb']:.3f} GB)")
+          f"{record['ms']:.4f} ms, plain twin {record['plain_ms']:.1f} ms, bound "
+          f"{record['bound_ms']:.4f} ms ({record['bound_gb']:.3f} GB, {record['bound_by']}; "
+          f"{100 * record['bound_ms'] / record['ms']:.1f} % of it); its serial chain alone "
+          f"{limits['chain_ms']:.4f} ms (phase 1)")
     return launches, record, sol, ks
 
 
@@ -624,7 +775,7 @@ def phase_data_plane(dev, sol, ks) -> dict:
     return {"gf256_matmul": (enc_launches, b2), "gf256_matmul_batched": (dec_launches, b3)}
 
 
-def phase_serve(dev) -> tuple[int, dict]:
+def phase_serve(dev, limits: dict) -> tuple[int, dict]:
     """SmolLM-135M at full width and depth behind the JLCM router."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -715,8 +866,15 @@ def phase_serve(dev) -> tuple[int, dict]:
           f"{record['ms']:.4f} ms, plain twin {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention {record['library_ms']:.4f} ms "
           f"(|diff| {lib_err:.3g}), bound {record['bound_ms']:.4f} ms "
-          f"({record['bound_flop']:.4g} FLOP, {record['bound_gb']:.4f} GB, "
-          f"{record['bound_by']}), TF32 tensor-core time {record['bound_tf32_ms']:.4f} ms")
+          f"({TF32_PASSES} TF32 passes of {record['bound_flop']:.4g} FLOP, {record['bound_by']}; "
+          f"{100 * record['bound_ms'] / record['ms']:.1f} % of it); one TF32 pass "
+          f"{record['bound_tf32_ms']:.4f} ms, float32 off the tensor cores "
+          f"{record['bound_fp32_ms']:.4f} ms, bytes {record['bound_bytes_ms']:.4f} ms "
+          f"({record['bound_gb']:.4f} GB)")
+    at_mma = TF32_PASSES * record["bound_flop"] / (limits["mma_tflops"] * 1e12) * 1e3
+    print(f"[6] B4's {TF32_PASSES} TF32 passes at the {limits['mma_tflops']:.1f} TFLOP/s "
+          f"mma.sync reached in phase 1: {at_mma:.4f} ms "
+          f"({100 * at_mma / record['ms']:.1f} % of B4's time)")
     del calls
     return sum(prefill_launches), record
 
@@ -731,14 +889,14 @@ def main() -> int:
     torch.cuda.set_device(dev)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    phase_build()
+    limits = phase_limits(dev, phase_build())
     worst = phase_kernel_vs_plain(dev)
     phase_gf256_vs_plain(dev)
     flash_err = phase_flash_vs_plain(dev)
     quick_launches, quick_err = phase_quickstart(dev)
-    fleet_launches, record, sol, ks = phase_catalog(dev)
+    fleet_launches, record, sol, ks = phase_catalog(dev, limits)
     plane = phase_data_plane(dev, sol, ks)
-    serve_launches, flash = phase_serve(dev)
+    serve_launches, flash = phase_serve(dev, limits)
     kernels = [{
         "name": "fcfs_scan",
         "route": "cuda",
@@ -790,6 +948,8 @@ def main() -> int:
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "bound_tf32_ms": flash["bound_tf32_ms"],
+        "bound_fp32_ms": flash["bound_fp32_ms"],
+        "bound_bytes_ms": flash["bound_bytes_ms"],
         "library_ms": flash["library_ms"],  # scaled_dot_product_attention, timed only
     })
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,5 @@
-// Causal / sliding-window GQA flash attention (forward), for Hopper (sm_90a).
+// Causal / sliding-window GQA flash attention (forward), for Hopper (sm_90a),
+// on the tensor cores through mma.sync.
 //
 // Replaces the Pallas TPU kernel `flash_attention_pallas` in
 // src/repro/kernels/flash_attention.py:84 (body `_kernel` :37). For q
@@ -14,179 +15,447 @@
 // Keys [Tk, Tkp) are the reference's zero padding to its key block; they
 // are masked only by the causal test, as there. A row with no valid key at
 // all gets equal weights on [0, Tkp), which is what the reference's
-// all-NEG row leaves (NEG = -1e30 is finite, so exp(NEG - NEG) = 1).
+// all-NEG row leaves (NEG = -1e30 is finite, so exp(NEG - NEG) = 1). A key
+// outside a row's band gets score -inf and p = 0, so nothing outside the
+// band reaches acc (m starts at NEG, so exp(-inf - m) is 0, never NaN).
 //
-// Design. One block per (query tile, KV head, batch). Its 128 threads are
-// 128 query rows: thread t owns query position tile*QT + t / G and group
-// member t % G (QT = 128 / G), so all rows of the block read the same KV
-// head. Each thread keeps its q row and its float32 accumulator in
-// registers. K and V tiles of 64 keys are staged in shared memory as
-// float32 and read by all threads of a warp at one address (a broadcast).
-// Scores are taken 16 keys at a time into registers, then m, l and acc are
-// updated once per 16 keys. Keys outside a row's band get no weight
-// (exp(-inf) = 0), so nothing outside the band reaches acc: a row never
-// sees the reference's NEG "garbage", which its later rescaling by
-// alpha = exp(NEG - m) = 0 would wipe anyway. The block walks only the key
-// tiles that intersect some row's band, and a warp skips a 16-key step
-// that no row of it can see, so most of the upper triangle is never
-// computed. Query tiles are issued last-first: under a causal mask the
-// last tiles carry the most keys. With bfloat16 inputs p is rounded to
-// bfloat16 before it multiplies v, as the reference's p.astype(v.dtype).
-// Only the final row is written; padded query rows are never stored.
+// Design (FlashAttention-2's forward). A row is a (position, group member)
+// pair of one KV head; the rows of all positions, in order, are cut into
+// blocks of 64, so GQA's G query heads share every K/V tile and any G fits.
+// One block per (row tile, KV head, batch), 4 warps, 16 rows a warp; row
+// tiles are issued last-first, since under a causal mask they carry the
+// most keys. Rows past Tq compute but never store. K and V tiles of 64 keys
+// are copied into shared memory by 16-byte cp.async (keys past Tk
+// zero-filled) in a 2-stage ring: the next tile's copy is in flight while
+// this tile is computed. The block walks only the key tiles inside the
+// union of its rows' bands [band_lo, band_hi); a warp skips a tile that
+// none of its rows can see, and applies the mask only on tiles that cut
+// some row's band.
+//
+// Products. S = Q K^T and O += P V are m16n8 tiles of
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 for float32, with
+// float32 accumulators in registers. One TF32 pass keeps 11 bits of each
+// operand, too few for the 2e-5 tolerance against the float32 twin, so each
+// operand x is split as big = cvt.rna.tf32(x), small = cvt.rna.tf32(x - big)
+// and each product is taken as small*big + big*small + big*big, small terms
+// first (CUTLASS's 3xTF32), which is float32-accurate at 3x the TF32 work.
+// The rounding is two integer operations (`to_tf32`), bit for bit the
+// conversion instruction's on finite inputs. Q is split once, as it is
+// loaded (big kept in registers, small parked in shared memory); K and V
+// are split as they are read from shared memory, by each warp for its own
+// fragments. The bfloat16 instance runs
+// mma.sync...m16n8k16.f32.bf16.bf16.f32 directly, and rounds p to bfloat16
+// before P V, as the reference's p.astype(v.dtype).
+//
+// The troubles, and what this file does about them:
+// - The m16n8 accumulator of S gives a thread columns 2c, 2c+1 of each
+//   8-key group, but the m16n8k8 A operand wants columns c, c+4. P stays
+//   in registers: within each group of 8 keys, A's column c is key 2c and
+//   column c+4 is key 2c+1, and V's B fragment is read in the same order
+//   (rows 2c and 2c+1 of the group), so the sum over keys is unchanged.
+//   (m16n8k16 bf16 needs no permutation: its A layout is the accumulator's.)
+// - Bank conflicts: K and V rows are padded to hd + 4 floats (hd + 8
+//   bfloat16, 16 bytes). K's B fragment reads row 8nt+g, column 8kk+t,
+//   and V's reads rows 2t, 2t+1, column g; with that stride the 32 lanes
+//   of a float32 read hit 32 distinct banks for every hd in {8, 16, 32, 64}.
+// - hd in {8, 16, 32, 64} are all instantiated. At hd = 8 a float32
+//   product is one k-step; the bfloat16 k16 step zero-fills columns >= hd.
+// - Ragged T = 2016 with G = 3 is 6048 rows, 94.5 blocks of 64: the last
+//   block's rows past Tq compute and never store.
+// - Accuracy: the tensor cores add into their float32 accumulator more
+//   coarsely than float32's round to nearest, and O runs over every key
+//   tile of the row (32 tiles at T = 2016), so carried in the mma
+//   accumulator it drifted past 2e-5 from the twin on the serve path. Each
+//   tile's P V is taken from zero and added as O = fmaf(O, alpha, PV) in
+//   float32; S is a fresh 64-term dot product each tile.
+// - Registers at hd = 64: Q big 32 (Q small lives in shared memory), O 32,
+//   this tile's P V 32, a 16 x 64 S tile 32, and the split fragments in
+//   flight. Capped at 168 (3 blocks an SM) the float32 hd = 64 instance
+//   spilled and ran slower, so the cap is 255 (__launch_bounds__(128, 2)):
+//   2 blocks of 4 warps an SM. `ptxas -v` reports registers and spills for
+//   every instance at build; none spills.
 //
 // What bounds it on an H100 SXM (NVIDIA's published peaks, at the full
 // 700 W power limit). At SmolLM-135M's prefill, (B, T, H, KH, hd) =
-// (4, 2016, 9, 3, 64) in float32: bytes q + k + v + out = 49.5 MB, 14.8 us
-// at 3.35 TB/s; the causal band alone is 2 * 2 * B*H*T(T+1)/2 * hd =
-// 1.87e10 FLOP, 0.280 ms at 67 TFLOP/s outside the tensor cores. So
-// operations bind. This kernel uses no tensor cores; wgmma at the TF32
-// rate (495 TFLOP/s, 0.038 ms) is later work, as is reusing each shared
-// memory load for more than one query row.
+// (4, 2016, 9, 3, 64) in float32, the causal band is
+// 2 * 2 * hd * B*H*T(T+1)/2 = 1.874e10 FLOP. Float32-accurate work on this
+// design is 3 TF32 passes: 3 * 1.874e10 / 495e12 = 0.114 ms, the floor;
+// one TF32 pass would be 0.038 ms, float32 outside the tensor cores
+// 0.280 ms, and the bytes q + k + v + out (49.5 MB) 0.015 ms.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int THREADS = 128;  // query rows per block
-constexpr int KT = 64;        // keys per shared-memory tile
-constexpr int KC = 16;        // keys per online-softmax step
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = 16 * WARPS;  // (position, group member) rows per block
+constexpr int KT = 64;            // keys per shared-memory tile
+constexpr int NT = KT / 8;        // 8-key groups per tile
+constexpr int STAGES = 2;
+constexpr int MAX_GROUP = 128;    // the wrapper's MAX_GROUP
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-// p as the reference's p.astype(v.dtype) leaves it
-__device__ __forceinline__ float as_v(float p, const float*) { return p; }
-__device__ __forceinline__ float as_v(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(p));
+template <typename T>
+__host__ __device__ constexpr int pad() { return 16 / (int)sizeof(T); }  // 16 bytes of row padding
+
+template <typename T, int HD>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * 2 * KT * (HD + pad<T>()) * (int)sizeof(T) +
+         (std::is_same<T, float>::value ? WARPS * (HD / 8) * 32 * 16 : 0);  // Q small
+}
+
+// cvt.rna.tf32.f32 on finite x (round to nearest, ties away from zero, 10
+// mantissa bits kept) as two integer operations, bit for bit the
+// instruction's result; the instruction itself ran slower in this kernel
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// small*big + big*small + big*big, small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], uint32_t bb0,
+                                           uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return pack_bf16(__float2bfloat16(lo), __float2bfloat16(hi));
+}
+
+// 16 bytes global -> shared; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;" ::: "memory"); }
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ void put2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        int tq, int tk, int tkp, int h, int kh, float scale,
                        int causal, int has_window, int window) {
-  __shared__ __align__(16) float ks[KT * HD];
-  __shared__ __align__(16) float vs[KT * HD];
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int LD = HD + pad<T>();        // shared row stride, elements
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  constexpr int CPR = HD / EPC;             // copies per key row
+  constexpr int DN = HD / 8;                // 8-wide column groups of the output
+  constexpr int KS = F32 ? HD / 8 : (HD + 15) / 16;  // k-steps of Q K^T
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
   __shared__ int band_lo, band_hi;
 
-  const int g = h / kh;
-  const int qt = THREADS / g;  // query positions per block
-  const int n_tiles = (tq + qt - 1) / qt;
+  const int g_size = h / kh;
+  const int n_tiles = (int)(((long long)tq * g_size + ROWS - 1) / ROWS);
   const int tile = n_tiles - 1 - (int)blockIdx.x;  // heaviest tiles first
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const int t = threadIdx.x;
-  const int iq = tile * qt + t / g;
-  const bool active = t < qt * g && iq < tq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq4 = lane & 3;  // mma groupID, thread in group
 
-  // this row's band [lo, hi) of keys in [0, tkp); empty for idle threads
-  int lo = 0, hi = 0;
-  bool all_masked = false;
-  if (active) {
-    hi = causal ? min(tkp, iq + 1) : tkp;
-    if (has_window) lo = max(0, iq - window + 1);
-    if (lo >= hi) {  // every key masked: equal weights, as the reference
-      all_masked = true;
-      lo = 0;
-      hi = tkp;
+  // the thread's two rows: r = 0 is row gq of the warp, r = 1 row gq + 8
+  int lo[2], hi[2];
+  bool active[2], all_masked[2];
+  size_t row_off[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long f = (long long)tile * ROWS + 16 * warp + gq + 8 * r;
+    const int iq = (int)(f / g_size);
+    active[r] = iq < tq;
+    all_masked[r] = false;
+    lo[r] = INT_MAX;  // an idle row sees no key
+    hi[r] = INT_MIN;
+    row_off[r] = 0;
+    if (active[r]) {
+      row_off[r] = (((size_t)b * tq + iq) * h + (size_t)kvh * g_size + (int)(f % g_size)) * HD;
+      hi[r] = causal ? min(tkp, iq + 1) : tkp;
+      lo[r] = has_window ? max(0, iq - window + 1) : 0;
+      if (lo[r] >= hi[r]) {  // every key masked: equal weights, as the reference
+        all_masked[r] = true;
+        lo[r] = 0;
+        hi[r] = tkp;
+      }
     }
   }
-  if (t == 0) {
+  if (threadIdx.x == 0) {
     band_lo = INT_MAX;
     band_hi = 0;
   }
   __syncthreads();
-  if (active && lo < hi) {
-    atomicMin(&band_lo, lo);
-    atomicMax(&band_hi, hi);
+  if (tq4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (active[r] && lo[r] < hi[r]) {
+        atomicMin(&band_lo, lo[r]);
+        atomicMax(&band_hi, hi[r]);
+      }
   }
+  // the warp's band [wlo, whi), the keys every active row of it sees
+  // [wfull_lo, wfull_hi), and whether some row is all-masked (warp-uniform)
+  int wlo = min(lo[0], lo[1]), whi = max(hi[0], hi[1]);
+  int wfull_lo = max(active[0] ? lo[0] : INT_MIN, active[1] ? lo[1] : INT_MIN);
+  int wfull_hi = min(active[0] ? hi[0] : INT_MAX, active[1] ? hi[1] : INT_MAX);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    wlo = min(wlo, __shfl_xor_sync(0xffffffffu, wlo, o));
+    whi = max(whi, __shfl_xor_sync(0xffffffffu, whi, o));
+    wfull_lo = max(wfull_lo, __shfl_xor_sync(0xffffffffu, wfull_lo, o));
+    wfull_hi = min(wfull_hi, __shfl_xor_sync(0xffffffffu, wfull_hi, o));
+  }
+  const bool warp_all_masked = __any_sync(0xffffffffu, all_masked[0] || all_masked[1]);
   __syncthreads();
   const int blo = band_lo, bhi = band_hi;
 
-  const size_t row = active ? ((size_t)b * tq + iq) * h + (size_t)kvh * g + t % g : 0;
-  float qr[HD], acc[HD];
+  // Q as the A operand: float32 split into TF32 big and small once here,
+  // big in registers and small parked in shared memory after the K/V ring
+  // (uint4 [warp][kk][lane], read back by the same thread); bfloat16 as
+  // packed pairs in registers
+  uint4* const qsmall =
+      reinterpret_cast<uint4*>(smem_raw + STAGES * 2 * KT * LD * sizeof(T)) + warp * KS * 32 + lane;
+  uint32_t qa[KS][4];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = active ? to_f(q[row * HD + d]) : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = NEG, l = 0.f;
-
-  for (int k0 = blo; k0 < bhi; k0 += KT) {
-    const int kn = min(KT, bhi - k0);
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = t; i < KT * HD; i += THREADS) {
-      const int j = i / HD, ik = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (j < kn && ik < tk) {
-        const size_t off = (((size_t)b * tk + ik) * kh + kvh) * HD + i % HD;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t qs[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i & 1;  // a0, a2: row gq; a1, a3: row gq + 8
+      if constexpr (F32) {
+        const int col = 8 * kk + tq4 + 4 * (i >> 1);
+        const float x = active[r] ? q[row_off[r] + col] : 0.f;
+        split(x, qa[kk][i], qs[i]);
+      } else {
+        const int col = 16 * kk + 2 * tq4 + 8 * (i >> 1);
+        qa[kk][i] = active[r] && col < HD
+                        ? *reinterpret_cast<const uint32_t*>(q + row_off[r] + col)
+                        : 0u;
       }
-      ks[i] = kx;
-      vs[i] = vx;
     }
+    if constexpr (F32) qsmall[kk * 32] = make_uint4(qs[0], qs[1], qs[2], qs[3]);
+  }
+
+  float o[DN][4];
+#pragma unroll
+  for (int d = 0; d < DN; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+  const size_t kv_row0 = (size_t)b * tk * kh + kvh;  // key ik at (kv_row0 + ik*kh)*HD
+  auto stage_k = [&](int s) { return smem + (size_t)s * 2 * KT * LD; };
+  auto load_tile = [&](int k0, int s) {
+    T* ks = stage_k(s);
+    T* vs = ks + KT * LD;
+    for (int c = threadIdx.x; c < KT * CPR; c += THREADS) {
+      const int j = c / CPR, part = c % CPR;
+      const int ik = k0 + j;
+      const bool real = ik < tk;  // padded keys are zeros
+      const size_t off = real ? (kv_row0 + (size_t)ik * kh) * HD + part * EPC : 0;
+      cp_async16(ks + j * LD + part * EPC, k + off, real ? 16 : 0);
+      cp_async16(vs + j * LD + part * EPC, v + off, real ? 16 : 0);
+    }
+  };
+
+  const int n_kt = bhi > blo ? (bhi - blo + KT - 1) / KT : 0;
+  if (n_kt > 0) load_tile(blo, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = blo + it * KT;
+    if (it + 1 < n_kt) load_tile(k0 + KT, (it + 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait1();  // this tile's copies (all but the newest group) landed
     __syncthreads();
+    const T* ks = stage_k(it % STAGES);
+    const T* vs = ks + KT * LD;
 
-    for (int c = 0; c < kn; c += KC) {
-      const int c0 = k0 + c;
-      // warp-uniform: skip 16 keys that no row of this warp can see
-      if (!__any_sync(0xffffffffu, c0 < hi && c0 + KC > lo)) continue;
-      float s[KC];
-      float smax = NEG;
+    if (k0 < whi && k0 + KT > wlo) {  // warp-uniform: some row sees the tile
+      // S = Q K^T for 16 rows x 64 keys; s[nt] is keys k0 + 8nt .. + 7
+      float s[NT][4];
 #pragma unroll
-      for (int j = 0; j < KC; ++j) {
-        const float4* kr = reinterpret_cast<const float4*>(ks + (c + j) * HD);
-        float dot = 0.f;
+      for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-        for (int d = 0; d < HD / 4; ++d) {
-          const float4 x = kr[d];
-          dot = fmaf(qr[4 * d], x.x, dot);
-          dot = fmaf(qr[4 * d + 1], x.y, dot);
-          dot = fmaf(qr[4 * d + 2], x.z, dot);
-          dot = fmaf(qr[4 * d + 3], x.w, dot);
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qs[4];
+        if constexpr (F32) {
+          const uint4 x = qsmall[kk * 32];
+          qs[0] = x.x, qs[1] = x.y, qs[2] = x.z, qs[3] = x.w;
         }
-        const int ik = c0 + j;
-        const bool valid = c + j < kn && ik >= lo && ik < hi;
-        s[j] = valid ? (all_masked ? 0.f : dot * scale) : -INFINITY;
-        smax = fmaxf(smax, s[j]);
-      }
-      const float m_new = fmaxf(m, smax);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < KC; ++j) {
-        const float p = expf(s[j] - m_new);  // 0 outside the band
-        l += p;
-        const float pv = as_v(p, q);
-        const float4* vr = reinterpret_cast<const float4*>(vs + (c + j) * HD);
-#pragma unroll
-        for (int d = 0; d < HD / 4; ++d) {
-          const float4 x = vr[d];
-          acc[4 * d] = fmaf(pv, x.x, acc[4 * d]);
-          acc[4 * d + 1] = fmaf(pv, x.y, acc[4 * d + 1]);
-          acc[4 * d + 2] = fmaf(pv, x.z, acc[4 * d + 2]);
-          acc[4 * d + 3] = fmaf(pv, x.w, acc[4 * d + 3]);
+        for (int nt = 0; nt < NT; ++nt) {
+          const T* kr = ks + (8 * nt + gq) * LD;
+          if constexpr (F32) {
+            uint32_t bb0, bs0, bb1, bs1;
+            split(kr[8 * kk + tq4], bb0, bs0);
+            split(kr[8 * kk + tq4 + 4], bb1, bs1);
+            mma_3xtf32(s[nt], qa[kk], qs, bb0, bb1, bs0, bs1);
+          } else {
+            const int c0 = 16 * kk + 2 * tq4;
+            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + c0);
+            const uint32_t b1 = c0 + 8 < HD ? *reinterpret_cast<const uint32_t*>(kr + c0 + 8) : 0u;
+            mma_bf16(s[nt], qa[kk], b0, b1);
+          }
         }
       }
-      m = m_new;
+
+      // scale, mask, online softmax; element e of s[nt] is row e >> 1,
+      // key k0 + 8nt + 2 tq4 + (e & 1)
+      const bool need_mask = warp_all_masked || k0 < wfull_lo || k0 + KT > wfull_hi;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float x = s[nt][e] * scale;
+          if (need_mask) {
+            const int ik = k0 + 8 * nt + 2 * tq4 + (e & 1);
+            x = ik >= lo[r] && ik < hi[r] ? (all_masked[r] ? 0.f : x) : -INFINITY;
+          }
+          s[nt][e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[nt][e] - m[e >> 1]);  // 0 outside the band
+          l[e >> 1] += p;
+          s[nt][e] = p;
+        }
+      }
+      // O = alpha O + P V, with this tile's P V taken from zero and added in
+      // float32 (the tensor cores' own accumulation is coarser than
+      // float32's round to nearest, and O runs over every tile)
+      float pv[DN][4];
+#pragma unroll
+      for (int d = 0; d < DN; ++d) pv[d][0] = pv[d][1] = pv[d][2] = pv[d][3] = 0.f;
+      if constexpr (F32) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          // A's column tq4 is key 2 tq4, column tq4 + 4 is key 2 tq4 + 1
+          uint32_t pb[4], ps[4];
+          split(s[nt][0], pb[0], ps[0]);
+          split(s[nt][2], pb[1], ps[1]);
+          split(s[nt][1], pb[2], ps[2]);
+          split(s[nt][3], pb[3], ps[3]);
+          const T* vr = vs + (8 * nt + 2 * tq4) * LD + gq;
+#pragma unroll
+          for (int d = 0; d < DN; ++d) {
+            uint32_t bb0, bs0, bb1, bs1;
+            split(vr[8 * d], bb0, bs0);
+            split(vr[8 * d + LD], bb1, bs1);
+            mma_3xtf32(pv[d], pb, ps, bb0, bb1, bs0, bs1);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {  // 16 keys a k-step
+          const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                  pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                  pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                  pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+          const T* vr = vs + (16 * j + 2 * tq4) * LD + gq;
+#pragma unroll
+          for (int d = 0; d < DN; ++d) {
+            const T* x = vr + 8 * d;
+            mma_bf16(pv[d], pa, pack_bf16(x[0], x[LD]), pack_bf16(x[8 * LD], x[9 * LD]));
+          }
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < DN; ++d) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[d][e] = fmaf(o[d][e], alpha[e >> 1], pv[d][e]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (active[r]) {
+#pragma unroll
+      for (int d = 0; d < DN; ++d)
+        put2(out + row_off[r] + 8 * d + 2 * tq4, o[d][2 * r] / den, o[d][2 * r + 1] / den);
     }
   }
+}
 
-  if (active) {
-    const float den = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int d = 0; d < HD; ++d) put(out + row * HD + d, acc[d] / den);
-  }
+template <typename T, int HD>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, int b,
+                      int tq, int tk, int tkp, int h, int kh, float scale, int causal,
+                      int has_window, int window, cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<T, HD>;
+  constexpr int bytes = smem_bytes<T, HD>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const long long rows = (long long)tq * (h / kh);
+  const dim3 grid((unsigned)((rows + ROWS - 1) / ROWS), kh, b);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), tq, tk, tkp, h, kh, scale, causal, has_window, window);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -194,40 +463,31 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out,
                          int b, int tq, int tk, int tkp, int h, int kh, int hd,
                          float scale, int causal, int has_window, int window,
                          cudaStream_t stream) {
-  const int qt = THREADS / (h / kh);
-  const dim3 grid((tq + qt - 1) / qt, kh, b);
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
-  T* oo = static_cast<T*>(out);
-#define FA_LAUNCH(HD)                                                           \
-  flash_attention_kernel<T, HD><<<grid, THREADS, 0, stream>>>(                  \
-      qq, kk, vv, oo, tq, tk, tkp, h, kh, scale, causal, has_window, window); \
-  break;
   switch (hd) {
-    case 8: FA_LAUNCH(8)
-    case 16: FA_LAUNCH(16)
-    case 32: FA_LAUNCH(32)
-    case 64: FA_LAUNCH(64)
-    default:
-      return cudaErrorInvalidValue;
+    case 8: return launch_hd<T, 8>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
+    case 16: return launch_hd<T, 16>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
+    case 32: return launch_hd<T, 32>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
+    case 64: return launch_hd<T, 64>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
+    default: return cudaErrorInvalidValue;
   }
-#undef FA_LAUNCH
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch on `stream`; no synchronise, no allocation. dtype 0 is float32,
-// 1 bfloat16. Returns the cudaError_t of the launch (0 on success).
+// 1 bfloat16. Every pointer must be 16-byte aligned (cp.async, paired
+// stores). Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int b, int tq, int tk, int tkp,
                                       int h, int kh, int hd, int dtype, float scale,
                                       int causal, int has_window, int window,
                                       void* stream) {
   if (b < 1 || b > 65535 || tq < 1 || tk < 0 || tkp < tk || kh < 1 || kh > 65535 ||
-      h < kh || h % kh != 0 || h / kh > THREADS || (has_window && window < 1))
+      h < kh || h % kh != 0 || h / kh > MAX_GROUP || (has_window && window < 1))
     return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch_typed<float>(q, k, v, out, b, tq, tk, tkp, h, kh, hd, scale,

@@ -96,6 +96,19 @@ def test_uint8_masks_match_bool_masks():
         assert torch.equal(a, b)
 
 
+def test_any_nonzero_mask_byte_counts_as_true():
+    """uint8 masks hold any byte where a node serves, as the reference reads them."""
+    t, masks, service = _workload(6, 4, 64, 12)
+    rng = np.random.default_rng(7)
+    as_bytes = masks.astype(np.uint8) * rng.integers(1, 256, masks.shape, dtype=np.uint8)
+    assert (as_bytes > 1).any()
+    ref, port = _both(t, as_bytes, service)
+    _assert_parity(ref, port)
+    _, as_bool = _both(t, masks, service)
+    for a, b in zip(as_bool, port):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_cpu_tensors_never_build_the_kernel(monkeypatch):
     """The plain twin runs because the tensors are on the CPU, not because
     a build failed: the library loader is never reached."""
