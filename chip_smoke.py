@@ -9,14 +9,18 @@ Phases, each raising on failure:
    ``build/repro_torch/``), one nvcc per source, started together: the
    FCFS scan (``fcfs_queue.cu``, kernel B1), the GF(256) product
    (``gf256_matmul.cu``, kernels B2 and B3) and flash attention
-   (``flash_attention.cu``, kernel B4), and this script's two probes
+   (``flash_attention.cu``, kernel B4), and this script's three probes
    (``PROBES``). nvcc's ``-Xptxas -v`` lines give every instance's
    registers, spills and shared memory. Print each build's seconds and the
-   card's name and power limit. Then the probes measure two limits no
+   card's name and power limit. Then the probes measure three limits no
    table gives: B1's serial chain alone (one thread, FLEET_REQUESTS steps
-   of ``dep = max(t, dep) + s``; CUDA events and SM cycles) and the rate
+   of ``dep = max(t, dep) + s``; CUDA events and SM cycles), the rate
    ``mma.sync`` reaches on TF32 (the instruction B4's products use, every
-   SM busy with independent accumulators).
+   SM busy with independent accumulators), and the rate of 8-byte
+   shared-memory loads at random indices (B2 and B3's lookups) on every
+   SM, once with lane-private table copies as the kernel reads them and
+   once into one 2 KB table, printed beside the INT32 rate
+   (``clocks.max.sm`` x 64 x SMs).
 2. Hold B1 against its plain PyTorch twin on the card: random, heavily
    loaded inputs at (S, N, m) = (64, 2048, 12), (5, 128, 6) and
    (3, 256, 40) (the kernel's wide instance), and unbatched at (2048, 12),
@@ -26,9 +30,14 @@ Phases, each raising on failure:
    bytes run from 1 to 255, at m = 12 and 40.
 2b. Hold B2 and B3 against their plain twins, bitwise, on random bytes
    through ``ops.gf256_matmul`` / ``ops.gf256_matmul_batch`` with the
-   default backend: the sweep shapes of ``tests/test_kernels.py``, a
-   batched (8, 12, 12) x (8, 12, 4099), and an unbatched
-   (4, 4) x (4, 2**29 + 3) whose operand is larger than 2**31 bytes.
+   default backend: the sweep shapes of ``tests/test_kernels.py`` (M up
+   to 256 and K up to 128: the kernel's row and k passes), a batched
+   (8, 12, 12) x (8, 12, 4099), every (M, K) the codec calls at odd
+   widths with B starting off the 16-byte boundary (unbatched and a
+   batch of 37), N = 1, a batch of 70 001 elements, and an unbatched
+   (4, 4) x (4, 2**29 + 3) whose operand is larger than 2**31 bytes
+   (timed beside its bound and the design's work at phase 1's rates).
+   The ``bitplane`` backend runs once on CUDA tensors against the twins.
    Products with an empty extent and an n == k encode give the defined
    result without a launch; a sliced view of a coded batch decodes
    byte-exact through B3.
@@ -54,7 +63,9 @@ Phases, each raising on failure:
    (n, k) group (B2); node 0 fails and ``lost_chunk_inventory`` must count
    every file; each file's ``degraded_patterns(i, [0])`` chunks are
    gathered and ``decode_requests`` decodes them (B3); every file's
-   decoded rows must equal its data byte for byte.
+   decoded rows must equal its data byte for byte. Every encode and
+   decode kernel call is timed on its inputs, and their sums are printed
+   beside the encode and decode walls.
 6. Serving: ``serve("smollm-135m", smoke=False)``, SmolLM-135M at full
    width and depth in float32 with random weights from a seed, 4 replicas
    planned by JLCM, 8 batches of 4 prompts of 2016 tokens routed by Madow
@@ -68,13 +79,15 @@ Phases, each raising on failure:
    yardstick only; the port never calls it), against its 3xTF32 bound and
    the time of the same three passes at the rate phase 1 measured.
 
-The bounds (``bound``, ``flash_bound``) are the least time the card could
-take for the work: each input read once and each output written once at
-3.35 TB/s, or the operations at the peak rate of the type the design
-computes in. B4 computes float32 attention as three TF32 tensor-core
+The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
+the card could take for the work: each input read once and each output
+written once at 3.35 TB/s, or the operations at the peak rate of the type
+the design computes in. B1's bound is its bytes. B2 and B3's are theirs:
+their integer operations, counted from the design, sit under the bytes at
+the INT32 peak. B4 computes float32 attention as three TF32 tensor-core
 passes (3xTF32), so its bound is 3 x 2 x 2 x hd FLOP per visible (row,
 key) pair at 495 TFLOP/s; the one-pass TF32, float32-outside-the-tensor-
-cores and byte times stand beside it as fields. B1's bound is its bytes.
+cores and byte times stand beside it as fields.
 The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
@@ -85,8 +98,8 @@ each call must have launched its kernel. Every kernel call those paths
 make is recorded, and its output is held against the plain twin on the
 same inputs: bitwise for B1 to B3 (B1's busy within rtol 1e-6, as in
 phase 2), within atol 2e-5 for B4. Each kernel and its plain twin are
-timed with CUDA events on the main path's own inputs (B2 and B3 on the
-largest codec group's).
+timed with CUDA events on the main path's own inputs (B2 and B3's records
+on the largest codec group's).
 
 It then prints the kernel records as one JSON line and, last, the device
 line. It needs a CUDA card, and fails without one.
@@ -145,6 +158,8 @@ FILE_BYTES = 4 * 2**20  # per file: 32 Tahoe segments of 128 KiB
 GF_SHAPES = [(1, 1, 1), (3, 4, 5), (8, 8, 8), (16, 100, 64), (5, 7, 512),
              (128, 128, 128), (130, 120, 260), (256, 64, 300)]
 GF_WIDE_N = 2**29 + 3  # (4, GF_WIDE_N) is larger than 2**31 bytes
+# every (M, K) the §V.B codec calls: encode (n - k, k) and decode (k, k), k = 6, 7, 4
+GF_CODEC_MK = [(6, 6), (5, 7), (8, 4), (7, 7), (4, 4)]
 # each kernel's launch count, by the name the kernels line gives it
 COUNTERS = {"fcfs_scan": fcfs_scan, "gf256_matmul": gf256_matmul_cuda,
             "gf256_matmul_batched": gf256_matmul_batched_cuda,
@@ -152,6 +167,8 @@ COUNTERS = {"fcfs_scan": fcfs_scan, "gf256_matmul": gf256_matmul_cuda,
 # NVIDIA's published H100 SXM peaks (at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT32_PER_CLOCK_SM = 64  # integer instructions a clock an SM
+INT32_OPS_PER_S = INT32_PER_CLOCK_SM * 132 * 1.98e9  # x SMs x boost clock
 TF32_OPS_PER_S = 495e12  # tensor cores, dense
 TF32_PASSES = 3  # B4's float32 path: small*big + big*small + big*big
 FLASH_SHAPE = (4, 2016, 9, 3, 64)  # SmolLM-135M's prefill in phase 6: (B, T, H, KH, hd)
@@ -159,9 +176,11 @@ FLASH_SHAPE = (4, 2016, 9, 3, 64)  # SmolLM-135M's prefill in phase 6: (B, T, H,
 # published 2048-token context
 SERVE = dict(n_replicas=4, batch=4, prompt_len=2016, gen_len=32, n_batches=8, hedge=0)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
+LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
 # Phase 1's probes, built like the kernels (into build/repro_torch/). They
-# measure two limits the published table does not give: the latency of B1's
-# carried chain, and the TF32 rate mma.sync reaches.
+# measure three limits the published table does not give: the latency of
+# B1's carried chain, the TF32 rate mma.sync reaches, and the rate of B2 and
+# B3's 8-byte table lookups (random indices, with and without lane copies).
 PROBES = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -200,6 +219,42 @@ __global__ void __launch_bounds__(256) mma_kernel(float* out, int iters) {
   float sum = 0.0f;
   for (int j = 0; j < 8; ++j) sum += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
   out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
+// B2/B3's table lookups alone: 8-byte shared-memory loads at random byte
+// offsets, 32 a thread, reread `iters` times. private_copies 0: into one
+// 2 KB table (entry e at e * 8); 1: each lane into its own copy of it, as
+// the kernel reads its tables (entry e of copy c at e * 128 + c * 8, lane
+// l on copy l % 16), so no two lanes of a half-warp share a bank pair.
+__global__ void __launch_bounds__(512) lds_kernel(unsigned* out, int iters, int private_copies) {
+  extern __shared__ uint2 lds_tab[];  // 32 KB
+  for (int i = threadIdx.x; i < 4096; i += blockDim.x) lds_tab[i] = make_uint2(i * 2654435761u, i);
+  __syncthreads();
+  const unsigned base = (unsigned)__cvta_generic_to_shared(lds_tab);
+  unsigned off[32];
+  uint32_t x = (blockIdx.x * blockDim.x + threadIdx.x) * 2654435761u + 12345u;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    x = x * 1664525u + 1013904223u;
+    const unsigned e = x >> 24;
+    off[i] = base + (private_copies ? (e << 7) | ((threadIdx.x & 15) << 3) : e << 3);
+  }
+  uint32_t a0 = 0, a1 = 0;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      uint32_t v0, v1;
+      asm volatile("ld.volatile.shared.v2.u32 {%0, %1}, [%2];" : "=r"(v0), "=r"(v1) : "r"(off[i]));
+      a0 ^= v0;
+      a1 ^= v1;
+    }
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = a0 ^ a1;
+}
+
+extern "C" int lds_probe(void* out, int blocks, int iters, int private_copies, void* stream) {
+  lds_kernel<<<blocks, 512, 32768, (cudaStream_t)stream>>>((unsigned*)out, iters, private_copies);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int chain_probe(void* out, void* cycles, int n, void* stream) {
@@ -337,18 +392,42 @@ def bound(s: int, n: int, m: int) -> dict:
 
 def gf_bound(batch: int, m: int, k: int, n: int) -> dict:
     """The least time for one GF(256) product: each input read once and
-    each output written once, or its operations at the card's peak
-    non-tensor rate (per multiply-add an add of logs, an exp lookup and an
-    xor, plus one log lookup per byte of B)."""
+    each output written once. Beside it, B2/B3's own work on this design:
+    ``gf_lookups`` 8-byte table lookups (one a column, k and pass of 8
+    rows) and ``gf_int_ops`` integer operations, counted from the source
+    per column and pass of ``rows`` rows and ``kc`` values of k: 3 a
+    lookup (shift, mask, xor), the repack (16 byte permutes a 4 columns
+    for rows > 4, else 8), half an operation a column for each B and C
+    row's window, and one for the loop. The operations at the INT32 peak
+    (64 a clock an SM at 1.98 GHz on 132 SMs) stay under the bytes on every
+    codec shape, so the bytes bind."""
     n_bytes = batch * (m * k + k * n + m * n)
-    n_ops = batch * k * n + 3 * batch * m * k * n
+    cols = batch * n
+    lookups = int_ops = 0
+    for r0 in range(0, m, 8):
+        rows = min(8, m - r0)
+        for k0 in range(0, k, 7):
+            kc = min(7, k - k0)
+            lookups += cols * kc
+            int_ops += cols * (3 * kc + (4 if rows > 4 else 2) + (kc + rows) / 2 + 1)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    ops_ms = int_ops / INT32_OPS_PER_S * 1e3
     return dict(
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         bound_gb=n_bytes / 1e9,
+        gf_lookups=lookups,
+        gf_int_ops=int_ops,
     )
+
+
+def gf_work_line(record: dict, limits: dict) -> str:
+    """The design's lookups and integer operations at phase 1's rates."""
+    lookup_ms = record["gf_lookups"] / limits["lookups_private_per_s"] * 1e3
+    int_ms = record["gf_int_ops"] / limits["int32_per_s"] * 1e3
+    return (f"its {record['gf_lookups']:.4g} lookups at phase 1's lane-private rate "
+            f"{lookup_ms:.4f} ms, its {record['gf_int_ops']:.4g} integer operations at "
+            f"the INT32 rate {int_ms:.4f} ms")
 
 
 def flash_bound(q, k) -> dict:
@@ -375,27 +454,40 @@ def flash_bound(q, k) -> dict:
     )
 
 
-def hold_gf_against_plain(calls, plain, kernel, label: str) -> dict:
+def hold_gf_against_plain(calls, plain, kernel, label: str, limits: dict) -> dict:
     """Each recorded GF(256) call's output against the plain twin on its
-    inputs, bitwise; time kernel and plain twin on the largest call."""
+    inputs, bitwise; each call's kernel timed on its inputs, and their sum
+    kept as ``sum_ms``. The record's time, bound and work are the largest
+    call's."""
     largest = max(calls, key=lambda call: call[0][1].numel())
-    record = {}
+    record = dict(sum_ms=0.0)
     for args, _, got in calls:
         plain_ms, want = cuda_ms(lambda: plain(*args), reps=1)
         if not torch.equal(got, want):
             raise AssertionError(f"{label} {tuple(args[1].shape)}: kernel != plain twin")
         del want
+        kernel_ms, _ = cuda_ms(lambda: kernel(*args), reps=5)
+        record["sum_ms"] += kernel_ms
         print(f"[{label}] main-path call {tuple(args[0].shape)} x {tuple(args[1].shape)}: "
-              f"kernel == plain twin bitwise, plain twin {plain_ms:.1f} ms")
+              f"kernel == plain twin bitwise, kernel {kernel_ms:.4f} ms, "
+              f"plain twin {plain_ms:.1f} ms")
         if args is largest[0]:
-            record["plain_ms"] = plain_ms
+            record.update(ms=kernel_ms, plain_ms=plain_ms)
     a, b = largest[0]
-    record["ms"], _ = cuda_ms(lambda: kernel(a, b), reps=5)
     shape = (1,) * (3 - a.dim()) + tuple(a.shape) + (b.shape[-1],)
     record.update(max_abs_err=0.0, **gf_bound(*shape))
+    # a yardstick of the card's read-and-write rate, not a GF(256) product:
+    # a device copy of B, which reads and writes as many bytes as the call
+    dst = torch.empty_like(b)
+    dst.copy_(b)
+    copy_ms, _ = cuda_ms(lambda: dst.copy_(b), reps=5)
+    del dst
     print(f"[{label}] {tuple(a.shape)} x {tuple(b.shape)} on the path's inputs: kernel "
-          f"{record['ms']:.3f} ms, plain twin {record['plain_ms']:.1f} ms, bound "
-          f"{record['bound_ms']:.3f} ms ({record['bound_gb']:.3f} GB, {record['bound_by']})")
+          f"{record['ms']:.4f} ms, plain twin {record['plain_ms']:.1f} ms, bound "
+          f"{record['bound_ms']:.4f} ms ({record['bound_gb']:.4f} GB, {record['bound_by']}; "
+          f"{100 * record['bound_ms'] / record['ms']:.1f} % of it); "
+          + gf_work_line(record, limits)
+          + f"; a device copy of B ({2 * b.numel() / 1e9:.4f} GB moved) {copy_ms:.4f} ms")
     return record
 
 
@@ -407,7 +499,8 @@ def load_probes():
     lib = build_library(source)
     lib.chain_probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
     lib.mma_probe.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    lib.chain_probe.restype = lib.mma_probe.restype = ctypes.c_int
+    lib.lds_probe.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.chain_probe.restype = lib.mma_probe.restype = lib.lds_probe.restype = ctypes.c_int
     return lib
 
 
@@ -458,11 +551,32 @@ def phase_limits(dev, probes) -> dict:
         raise AssertionError("mma probe gave non-finite sums")
     limits = dict(chain_ms=chain_ms, chain_cycles=chain_cycles,
                   mma_tflops=mma_flop / (mma_ms * 1e-3) / 1e12)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+    limits["int32_per_s"] = INT32_PER_CLOCK_SM * sms * mhz * 1e6
+    lds_out = torch.zeros(LDS_BLOCKS_PER_SM * sms * 512, dtype=torch.int32, device=dev)
+    lookups = lds_out.numel() * 32 * LDS_ITERS
+    for private, key in ((1, "lookups_private_per_s"), (0, "lookups_random_per_s")):
+        lds = lambda: launched(probes.lds_probe(
+            lds_out.data_ptr(), LDS_BLOCKS_PER_SM * sms, LDS_ITERS, private, stream))
+        lds()  # warm
+        lds_ms, _ = cuda_ms(lds, reps=5)
+        limits[key] = lookups / (lds_ms * 1e-3)
     print(f"[1] B1's serial chain alone, one thread, {FLEET_REQUESTS} steps of "
           f"dep = max(t, dep) + s: {chain_ms:.4f} ms, {chain_cycles:.3f} SM cycles a step")
     print(f"[1] mma.sync m16n8k8 TF32 on {blocks} blocks of 8 warps, 8 accumulators a "
           f"warp: {limits['mma_tflops']:.1f} TFLOP/s ({mma_ms:.4f} ms for "
           f"{mma_flop:.4g} FLOP; the table's TF32 peak is {TF32_OPS_PER_S / 1e12:.0f})")
+    peak = 16 * sms * mhz * 1e6  # 128 bytes a clock an SM, 8 bytes a lookup
+    print(f"[1] 8-byte shared-memory lookups at random indices on {sms} SMs x "
+          f"{LDS_BLOCKS_PER_SM} blocks of 512 threads: lane-private copies "
+          f"{limits['lookups_private_per_s']:.4g}/s "
+          f"({100 * limits['lookups_private_per_s'] / peak:.1f} % of 16 a clock an SM at "
+          f"{mhz:.0f} MHz), one 2 KB table {limits['lookups_random_per_s']:.4g}/s "
+          f"({100 * limits['lookups_random_per_s'] / peak:.1f} %); INT32 "
+          f"{limits['int32_per_s']:.4g}/s ({INT32_PER_CLOCK_SM} a clock an SM at clocks.max.sm)")
     return limits
 
 
@@ -499,16 +613,33 @@ def phase_kernel_vs_plain(dev) -> float:
     return worst
 
 
-def phase_gf256_vs_plain(dev) -> None:
+def phase_gf256_vs_plain(dev, limits: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     def rand(*shape):
         return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
 
+    def at_offset(offset, *shape):
+        """Random bytes of ``shape``, contiguous, ``offset`` bytes into a
+        fresh buffer, so that its rows start off the 16-byte boundary."""
+        return rand(offset + int(np.prod(shape)))[offset:].view(shape)
+
     cases = [("B2", ops.gf256_matmul, gf256_matmul_plain, (rand(m, k), rand(k, n)))
              for m, k, n in GF_SHAPES]
     cases.append(("B3", ops.gf256_matmul_batch, gf256_matmul_batched_plain,
                   (rand(8, 12, 12), rand(8, 12, 4099))))
+    # the codec's own (M, K) (encode (n - k, k), decode (k, k)) at odd widths,
+    # B starting 1..9 bytes off the 16-byte boundary; N = 1; a batch of
+    # 70 001 elements, hundreds a block, each with its own tables
+    for i, (m, k) in enumerate(GF_CODEC_MK):
+        cases.append(("B2", ops.gf256_matmul, gf256_matmul_plain,
+                      (rand(m, k), at_offset(2 * i + 1, k, 100_003 + 2 * i))))
+        cases.append(("B3", ops.gf256_matmul_batch, gf256_matmul_batched_plain,
+                      (rand(37, m, k), at_offset(i + 1, 37, k, 4097 + 2 * i))))
+    cases.append(("B3", ops.gf256_matmul_batch, gf256_matmul_batched_plain,
+                  (rand(3, 6, 6), rand(3, 6, 1))))
+    cases.append(("B3", ops.gf256_matmul_batch, gf256_matmul_batched_plain,
+                  (rand(70_001, 6, 6), at_offset(3, 70_001, 6, 33))))
     cases.append(("B2", ops.gf256_matmul, gf256_matmul_plain, (rand(4, 4), rand(4, GF_WIDE_N))))
     for name, fn, plain, (a, b) in cases:
         counter = COUNTERS["gf256_matmul" if name == "B2" else "gf256_matmul_batched"]
@@ -518,8 +649,24 @@ def phase_gf256_vs_plain(dev) -> None:
             raise AssertionError(f"{name} {tuple(b.shape)}: default backend did not launch")
         if not torch.equal(got, plain(a, b)):
             raise AssertionError(f"{name} {tuple(a.shape)} x {tuple(b.shape)}: kernel != plain twin")
-        print(f"[2b] {name} {tuple(a.shape)} x {tuple(b.shape)} ({b.numel()} bytes): "
-              f"kernel == plain twin bitwise")
+        print(f"[2b] {name} {tuple(a.shape)} x {tuple(b.shape)} ({b.numel()} bytes, B at "
+              f"{b.data_ptr() % 16} past 16): kernel == plain twin bitwise")
+    kernel_ms, _ = cuda_ms(lambda: gf256_matmul_cuda(a, b), reps=5)  # the > 2**31-byte case
+    record = gf_bound(1, *a.shape, b.shape[-1])
+    print(f"[2b] B2 {tuple(a.shape)} x {tuple(b.shape)}: kernel {kernel_ms:.4f} ms, bound "
+          f"{record['bound_ms']:.4f} ms ({record['bound_by']}; "
+          f"{100 * record['bound_ms'] / kernel_ms:.1f} % of it); " + gf_work_line(record, limits))
+    del a, b, got
+    # the bitplane backend (torch.matmul in float32) on the card, once each
+    a, b = rand(6, 6), at_offset(1, 6, 4099)
+    if not torch.equal(ops.gf256_matmul(a, b, backend="bitplane"), gf256_matmul_plain(a, b)):
+        raise AssertionError("bitplane backend != plain twin on the card")
+    a, b = rand(5, 6, 6), rand(5, 6, 999)
+    if not torch.equal(ops.gf256_matmul_batch(a, b, backend="bitplane"),
+                       gf256_matmul_batched_plain(a, b)):
+        raise AssertionError("batched bitplane backend != plain twin on the card")
+    print("[2b] bitplane backend on CUDA tensors, (6, 6) x (6, 4099) and batched "
+          "(5, 6, 6) x (5, 6, 999): == plain twin bitwise")
 
     # an empty extent is answered without a launch: empty for M or N, zeros
     # for K; an n == k group's encode is its data
@@ -708,7 +855,7 @@ def split_payloads(gen, count: int, k: int, dev) -> torch.Tensor:
     return rows
 
 
-def phase_data_plane(dev, sol, ks) -> dict:
+def phase_data_plane(dev, sol, ks, limits: dict) -> dict:
     t_start = time.perf_counter()
     plan = CodecPlan.from_solution(sol, ks)
     print(f"[5] codec plan: {plan.r} files on {plan.m} nodes; groups " + ", ".join(
@@ -734,7 +881,10 @@ def phase_data_plane(dev, sol, ks) -> dict:
     coded_gb = sum(x.numel() for x in coded.values()) / 1e9
     print(f"[5] encode: {user_gb:.3f} GB of rows -> {coded_gb:.3f} GB coded in {encode_s:.3f} s, "
           f"gf256_matmul launches {enc_launches}")
-    b2 = hold_gf_against_plain(enc_calls, gf256_matmul_plain, gf256_matmul_cuda, "5 encode")
+    b2 = hold_gf_against_plain(enc_calls, gf256_matmul_plain, gf256_matmul_cuda, "5 encode",
+                               limits)
+    print(f"[5] encode: its {len(enc_calls)} B2 calls take {b2['sum_ms']:.4f} ms of the "
+          f"{encode_s * 1e3:.3f} ms encode wall ({100 * b2['sum_ms'] / (encode_s * 1e3):.1f} %)")
     enc_calls.clear()
 
     failed = np.zeros(plan.m, bool)
@@ -768,7 +918,9 @@ def phase_data_plane(dev, sol, ks) -> dict:
         raise AssertionError(f"only {exact} of {plan.r} files decoded byte-exact")
     del decoded, chunks
     b3 = hold_gf_against_plain(dec_calls, gf256_matmul_batched_plain,
-                               gf256_matmul_batched_cuda, "5 decode")
+                               gf256_matmul_batched_cuda, "5 decode", limits)
+    print(f"[5] decode: its {len(dec_calls)} B3 calls take {b3['sum_ms']:.4f} ms of the "
+          f"{decode_s * 1e3:.3f} ms decode wall ({100 * b3['sum_ms'] / (decode_s * 1e3):.1f} %)")
     dec_calls.clear()
     print(f"[5] data plane: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"phase wall {time.perf_counter() - t_start:.3f} s")
@@ -891,11 +1043,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     limits = phase_limits(dev, phase_build())
     worst = phase_kernel_vs_plain(dev)
-    phase_gf256_vs_plain(dev)
+    phase_gf256_vs_plain(dev, limits)
     flash_err = phase_flash_vs_plain(dev)
     quick_launches, quick_err = phase_quickstart(dev)
     fleet_launches, record, sol, ks = phase_catalog(dev, limits)
-    plane = phase_data_plane(dev, sol, ks)
+    plane = phase_data_plane(dev, sol, ks, limits)
     serve_launches, flash = phase_serve(dev, limits)
     kernels = [{
         "name": "fcfs_scan",

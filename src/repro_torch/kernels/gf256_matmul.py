@@ -6,14 +6,17 @@ product; a batch of degraded-read decodes is (B, k, k) x (B, k, bytes).
 
 * :func:`gf256_matmul_cuda` (kernel B2) and :func:`gf256_matmul_batched_cuda`
   (kernel B3) launch the hand-written Hopper kernel in
-  ``csrc/gf256_matmul.cu``: log/exp tables in shared memory, 16 consecutive
-  output bytes per thread, size_t offsets. They replace the Pallas TPU
-  kernels ``repro/kernels/gf256_matmul.py::gf256_matmul_pallas`` and
+  ``csrc/gf256_matmul.cu``: row-packed product tables in shared memory
+  (:func:`packed_product_tables` is what each block builds), one 8-byte
+  lookup per column and k, aligned 16-byte loads and stores whatever the
+  rows' alignment, a persistent grid. They replace the Pallas TPU kernels
+  ``repro/kernels/gf256_matmul.py::gf256_matmul_pallas`` and
   ``gf256_matmul_pallas_batched``. The TPU's block-size choice
   (``select_block_sizes``) reasons about VMEM and is not ported; the CUDA
   kernel fixes its own tiling. The library is built with ``nvcc`` for
   ``sm_90a`` into ``build/repro_torch/`` at first launch and loaded with
-  ``ctypes``. Each adds one to its own ``launches`` count per launch.
+  ``ctypes``. Each adds one to its own ``launches`` count per call (a call
+  with M > 8 or K > 7 runs as several passes of the kernel).
 * :func:`gf256_matmul_plain` and :func:`gf256_matmul_batched_plain` are
   their plain twins: the K-scan of 8-round xtime multiplies that the TPU
   kernel's ``_gf_mul_tile`` runs. GF(256) arithmetic is exact, so table
@@ -33,12 +36,11 @@ from pathlib import Path
 import torch
 from torch import Tensor
 
-from repro_torch.storage.gf256 import gf_matmul_ref
+from repro_torch.storage.gf256 import gf_matmul_ref, gf_mul_xtime
 
 from ._build import build_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gf256_matmul.cu"
-MAX_K = 256  # the kernel stages log(A) rows of at most this many entries
 
 
 @functools.cache
@@ -50,7 +52,7 @@ def load_library() -> ctypes.CDLL:
         ptrs + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
     )
     lib.gf256_matmul_batched_launch.argtypes = (
-        ptrs + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+        ptrs + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
     )
     lib.gf256_matmul_launch.restype = ctypes.c_int
     lib.gf256_matmul_batched_launch.restype = ctypes.c_int
@@ -81,6 +83,19 @@ def gf256_matmul_batched_plain(a: Tensor, b: Tensor) -> Tensor:
     return gf_matmul_ref(a, b)
 
 
+def packed_product_tables(a: Tensor) -> Tensor:
+    """The kernel's row-packed product tables for one pass of A (M, K), M <= 8:
+    (K, 256) int64 whose entry [k, e] holds A[i, k] * e in byte i, for
+    every byte e. A column j of C = A @GF B is then the XOR over k of
+    entry [k, B[k, j]], row i in byte i."""
+    m, k = a.shape
+    if m > 8:
+        raise ValueError(f"a pass packs at most 8 rows, got {m}")
+    prods = gf_mul_xtime(a.T[:, :, None], torch.arange(256, dtype=torch.uint8, device=a.device))
+    shifts = 8 * torch.arange(m, device=a.device)[:, None]
+    return (prods.long() << shifts).sum(dim=1)
+
+
 def _launch_checks(a: Tensor, b: Tensor, ndim: int) -> None:
     _check(a, b, ndim)
     if not a.is_cuda or b.device != a.device:
@@ -90,8 +105,6 @@ def _launch_checks(a: Tensor, b: Tensor, ndim: int) -> None:
             raise ValueError(f"{name} must be contiguous")
         if x.numel() == 0:
             raise ValueError(f"{name} is empty, shape {tuple(x.shape)}")
-    if a.shape[-1] > MAX_K:
-        raise ValueError(f"K = {a.shape[-1]} exceeds the kernel's {MAX_K}")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -116,7 +129,7 @@ def gf256_matmul_cuda(a: Tensor, b: Tensor) -> Tensor:
 
 
 def gf256_matmul_batched_cuda(a: Tensor, b: Tensor) -> Tensor:
-    """Kernel B3: (B, M, K) @GF (B, K, N); the batch is the grid's y axis."""
+    """Kernel B3: (B, M, K) @GF (B, K, N) on the current stream; no synchronise."""
     _launch_checks(a, b, 3)
     (bsz, m, k), n = a.shape, b.shape[2]
     out = torch.empty((bsz, m, n), dtype=torch.uint8, device=a.device)

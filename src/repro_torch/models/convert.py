@@ -2,9 +2,10 @@
 
 ``params_from_numpy(tree)`` takes the reference's parameter tree with numpy
 leaves (``jax.tree.map(np.asarray, params)``) and returns the same tree of
-tensors on ``device``: dicts stay dicts, lists stay lists, tuples stay
-tuples. The port's ``Model`` reads that tree as it is, so a test can run
-both packages on the same weights.
+tensors on ``device``, the card unless the caller asks for the CPU, as
+every entry point of the port does: dicts stay dicts, lists stay lists,
+tuples stay tuples. The port's ``Model`` reads that tree as it is, so a
+test can run both packages on the same weights.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
+def params_from_numpy(tree: Any, device="cuda") -> Any:
     if isinstance(tree, dict):
         return {key: params_from_numpy(val, device) for key, val in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -154,3 +154,28 @@ def test_flash_bound_is_three_tf32_passes_at_smollm_prefill():
     assert got["bound_fp32_ms"] == pytest.approx(0.2797, abs=1e-4)
     assert got["bound_bytes_ms"] == pytest.approx(0.01479, abs=1e-5)
     assert got["bound_gb"] == pytest.approx(0.049545216)
+
+
+@pytest.mark.parametrize("shape", [(1, 6, 6, 349_525_500), (500, 6, 6, 699_051)])
+def test_gf_bound_at_the_codec_path_shapes(shape):
+    """B2's (12, 6) encode and B3's (12, 6) decode move the same bytes:
+    bound by them, with the design's work (one lookup a column and k, 29
+    integer operations a column) under them at the INT32 peak."""
+    cs = _chip_smoke()
+    got = cs.gf_bound(*shape)
+    assert got["bound_by"] == "bytes"
+    assert got["bound_gb"] == pytest.approx(4.194, abs=5e-4)
+    assert got["bound_ms"] == pytest.approx(1.2520, abs=5e-5)
+    assert got["gf_lookups"] == 6 * 349_525_500 == 6 * 500 * 699_051
+    assert got["gf_int_ops"] == 29 * 349_525_500
+    assert got["gf_int_ops"] / cs.INT32_OPS_PER_S * 1e3 == pytest.approx(0.6060, abs=5e-4)
+
+
+def test_gf_bound_counts_passes_of_8_rows_and_7_k():
+    """M = 13 runs 2 row passes (8 and 5 rows), K = 16 three k passes
+    (7, 7 and 2) each: lookups count every pass."""
+    got = _chip_smoke().gf_bound(1, 13, 16, 100)
+    assert got["gf_lookups"] == 100 * 16 * 2
+    per_col = sum(3 * kc + (4 if rows > 4 else 2) + (kc + rows) / 2 + 1
+                  for rows in (8, 5) for kc in (7, 7, 2))
+    assert got["gf_int_ops"] == pytest.approx(100 * per_col)

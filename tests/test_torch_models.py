@@ -138,7 +138,7 @@ def test_smoke_model_prefill_and_greedy_decode_match(name, opt):
     port = build_model(cfg, dtype=torch.float32, remat="none", opt=opt, device="cpu")
     assert port.attn_impl == ref.attn_impl and port.cache_update == ref.cache_update
     ref_params = ref.init(jax.random.key(0))
-    params = params_from_numpy(jax.tree.map(np.asarray, ref_params))
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_params), device="cpu")
 
     b, prompt, steps = 2, 12, 8
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (b, prompt)).astype(np.int32)
