@@ -57,6 +57,27 @@ Phases, each raising on failure:
    claims), and a fleet of 256 seeds x 100000 requests must go through the
    kernel with a finite mean latency within the bound x 1.05. B1 is timed
    on the fleet's inputs beside its byte bound and the chain phase 1 timed.
+4b. The paper's §V figures (``benchmarks/fig{6,7,9,10,11,12,13}*.py``),
+   their sizes, rates and solver settings (``max_iters`` 400, default eps),
+   with explicit generators; every claim those benchmarks assert must hold.
+   Fig. 6: 40 000 service draws of ``homogeneous_cluster(7)`` and the
+   testbed, moments beside the paper's, KS distance to Exp(mean) > 0.3,
+   ``measured_fig6_moments().validate()``. Fig. 7: (7, 4) at 12 rates, our
+   bound (measured and exponential moments), [43]'s split-merge bound (+inf
+   at some rate) and ``simulate`` (30 000 requests) <= ours x 1.03. One
+   ``solve_batch`` of eight r = 1000 problems (fig11's 50-200 MB, fig12's
+   rate scales 0.55-0.85 at 200 MB, Maximum EC's theta = 0 problem); fig9's
+   four schemes by bound and simulation (Random CP the best of 100
+   ``random_placement_mask`` draws, scored as one batch), JLCM <= the best
+   other x 1.02; fig10's quantiles by k group and ``per_class_stats``, with
+   the sketch held to the exact latencies (count, mean within 1e-4, each
+   quantile between the order statistic and growth x it); fig11's
+   super-linear growth and simulated <= bound x 1.03; fig12's cost and
+   bound rising with load; one ``solve_batch`` of fig13's eight thetas,
+   cost falling and latency rising with theta. The figures' 21 scans are
+   stacked per figure on the seed axis and held to the plain twin bitwise;
+   B1 is timed on fig10's one-seed scan beside its bound and the serial
+   chain alone at that length.
 5. The data plane on phase 4's plan: ``CodecPlan.from_solution``; a 4 MiB
    payload per file (32 Tahoe segments of 128 KiB) from a seeded generator
    on the card, split as ``pad_and_split`` does; ``encode_batch`` once per
@@ -92,8 +113,8 @@ The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 6 every launch count is set to 0 just before each
-main-path call (simulator, encode, decode, prefill) and read just after;
+In phases 3 to 6 (4b included) every launch count is set to 0 just before
+each main-path call (simulator, encode, decode, prefill) and read just after;
 each call must have launched its kernel. Every kernel call those paths
 make is recorded, and its output is held against the plain twin on the
 same inputs: bitwise for B1 to B3 (B1's busy within rtol 1e-6, as in
@@ -121,7 +142,17 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import JLCMProblem, solve  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    JLCMProblem,
+    exponential_moments,
+    mean_latency_bound,
+    proportional_lb_pi,
+    random_placement_mask,
+    solve,
+    solve_batch,
+    split_merge_bound,
+)
+from repro_torch.core.jlcm import max_ec_problem, max_ec_report  # noqa: E402
 from repro_torch.kernels import fcfs_queue, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels._build import BUILD_DIR, build_library  # noqa: E402
@@ -140,15 +171,20 @@ from repro_torch.kernels.gf256_matmul import load_library as load_gf256  # noqa:
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.storage import (  # noqa: E402
+    DEFAULT_SKETCH,
     CodecPlan,
     GeoFabric,
     decode_batch,
     encode_batch,
+    homogeneous_cluster,
     lost_chunk_inventory,
+    measured_fig6_moments,
     pad_and_split,
     simulate,
     simulate_fleet,
     simulator,
+    stream_mean,
+    stream_quantile,
     tahoe_testbed,
 )
 
@@ -175,6 +211,17 @@ FLASH_SHAPE = (4, 2016, 9, 3, 64)  # SmolLM-135M's prefill in phase 6: (B, T, H,
 # phase 6: SmolLM-135M serving 4 replicas; prompt + generation fill its
 # published 2048-token context
 SERVE = dict(n_replicas=4, batch=4, prompt_len=2016, gen_len=32, n_batches=8, hedge=0)
+# phase 4b: the paper's §V figures, as benchmarks/fig{6,7,9,10,11,12,13}*.py
+# run them (their catalog size, request counts, rates, thetas and solver
+# settings), each figure's generator seeded with its benchmark's key
+FIG_FILES, FIG_MAX_ITERS, FIG_RANDOM_CP = 1000, 400, 100
+FIG_REQUESTS = dict(fig6=40_000, fig7=30_000, fig9=30_000, fig10=40_000, fig11=25_000)
+FIG_SEEDS = dict(fig6=0, fig7=1, fig9=0, fig10=3, fig11=4, random_cp=9)
+FIG7_INV_LAMBDA = (60, 40, 32, 24, 18, 14, 12, 11, 10.5, 10, 9.5, 9)
+FIG11_FILE_MB = (50.0, 100.0, 150.0, 200.0)
+FIG12_SCALES = (0.55, 0.7, 0.85)  # and 1.0, which is fig11's 200 MB problem
+FIG13_THETAS = (0.5, 1.0, 2.0, 10.0, 50.0, 100.0, 150.0, 200.0)
+PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
 # Phase 1's probes, built like the kernels (into build/repro_torch/). They
@@ -526,22 +573,30 @@ def phase_build():
     return probes
 
 
+def launched(err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"probe launch failed: cudaError_t {err}")
+
+
+def chain_time(dev, probes, steps: int) -> tuple[float, float]:
+    """B1's serial chain alone, one thread, ``steps`` steps: milliseconds
+    (CUDA events, mean of 5) and SM cycles a step."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.zeros(1, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    chain = lambda: launched(probes.chain_probe(
+        out.data_ptr(), cycles.data_ptr(), steps, stream))
+    chain()  # warm
+    ms, _ = cuda_ms(chain, reps=5)
+    return ms, int(cycles.item()) / steps
+
+
 def phase_limits(dev, probes) -> dict:
     """Time B1's serial chain alone and mma.sync's TF32 rate on this card."""
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.zeros(MMA_BLOCKS_PER_SM * 256 * torch.cuda.get_device_properties(dev)
                       .multi_processor_count, device=dev)
-    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
-
-    def launched(err: int) -> None:
-        if err != 0:
-            raise RuntimeError(f"probe launch failed: cudaError_t {err}")
-
-    chain = lambda: launched(probes.chain_probe(
-        out.data_ptr(), cycles.data_ptr(), FLEET_REQUESTS, stream))
-    chain()  # warm
-    chain_ms, _ = cuda_ms(chain, reps=5)
-    chain_cycles = int(cycles.item()) / FLEET_REQUESTS
+    chain_ms, chain_cycles = chain_time(dev, probes, FLEET_REQUESTS)
     blocks = out.numel() // 256
     mma = lambda: launched(probes.mma_probe(out.data_ptr(), blocks, MMA_ITERS, stream))
     mma()  # warm
@@ -841,6 +896,260 @@ def phase_catalog(dev, limits: dict) -> tuple[int, dict, object, torch.Tensor]:
     return launches, record, sol, ks
 
 
+def row(sols, i: int):
+    """Instance ``i`` of a batched JLCMSolution."""
+    return type(sols)(*(None if f is None else f[i] for f in sols))
+
+
+def timed_solve_batch(label: str, problems, dev):
+    """One ``solve_batch`` at the figures' settings; prints each instance's
+    iterations and the loop's wall."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sols = solve_batch(problems, max_iters=FIG_MAX_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = sols.iterations.tolist()
+    print(f"[4b] solve_batch {label}: {len(problems)} instances at r = {sols.pi.shape[1]}, "
+          f"iterations {iters}, loop of {max(iters)} iterations, wall {wall:.3f} s "
+          f"({wall / max(iters) * 1e3:.2f} ms an iteration)")
+    return sols, wall
+
+
+def fig6_service(dev, failed: list) -> None:
+    """Fig. 6: sampled service time is not exponential (KS distance)."""
+    for name, cl in (("homogeneous_cluster(7)", homogeneous_cluster(7, device=dev)),
+                     ("tahoe_testbed", tahoe_testbed(device=dev))):
+        gen = torch.Generator(device=dev).manual_seed(FIG_SEEDS["fig6"])
+        s = cl.sample_service(gen, 12.5, (FIG_REQUESTS["fig6"],)).reshape(-1).double()
+        mean, std = float(s.mean()), float(s.std(correction=0))
+        m2, m3 = float((s**2).mean()), float((s**3).mean())
+        xs = torch.sort(s).values
+        emp = torch.arange(1, xs.numel() + 1, dtype=torch.float64, device=dev) / xs.numel()
+        ks = float((emp - (1.0 - torch.exp(-xs / mean))).abs().max())
+        print(f"[4b] fig6 {name}: mean {mean:.3f} std {std:.3f} m2 {m2:.1f} m3 {m3:.1f} "
+              f"(paper {PAPER_FIG6['mean']} / {PAPER_FIG6['std']} / {PAPER_FIG6['m2']} / "
+              f"{PAPER_FIG6['m3']}), KS distance to Exp(mean) {ks:.4f}")
+        if name.startswith("homogeneous") and not ks > 0.3:
+            failed.append(f"fig6: KS distance {ks} <= 0.3 (service looks exponential)")
+    measured_fig6_moments(device=dev).validate()
+    print("[4b] fig6 measured_fig6_moments().validate() passes")
+
+
+def phase_figures(dev, probes) -> tuple[int, float]:
+    """Phase 4b: the paper's §V figures on the card, through the port's
+    entry points. Every simulation is a main-path call (counts reset before
+    it, B1 required); every scan is recorded, and each figure's scans are
+    stacked on the seed axis and held bitwise against the plain twin.
+    Returns B1's launches and the largest busy |difference|."""
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    scans: dict[str, list] = {}
+    launches = 0
+    gen = lambda fig: torch.Generator(device=dev).manual_seed(FIG_SEEDS[fig])
+
+    def sim(fig, *args, **kwargs):
+        nonlocal launches
+        with recorded(simulator, "fcfs_scan") as calls:
+            out, n = counted(f"{fig} simulate", lambda: simulate(*args, **kwargs))
+        launches += n
+        scans.setdefault(fig, []).extend(calls)
+        return out
+
+    fig6_service(dev, failed)
+
+    # Fig. 7: one (7, 4) file on the homogeneous Fig.-6 cluster, pi = k/n
+    cl7 = homogeneous_cluster(7, device=dev)
+    mom7 = cl7.moments(12.5)
+    mom_exp = exponential_moments(torch.full((7,), 1 / 13.9, device=dev))
+    pi7 = torch.full((1, 7), 4 / 7, device=dev)
+    theirs_all = []
+    for inv_lam in FIG7_INV_LAMBDA:
+        lam = torch.tensor([1.0 / inv_lam], device=dev)
+        ours = float(mean_latency_bound(pi7, lam, mom7))
+        ours_exp = float(mean_latency_bound(pi7, lam, mom_exp))
+        theirs = float(split_merge_bound(7, 4, 1 / 13.9, lam[0]))
+        simulated = float(sim("fig7", gen("fig7"), pi7, lam, cl7, 12.5,
+                              FIG_REQUESTS["fig7"]).mean_latency())
+        theirs_all.append(theirs)
+        print(f"[4b] fig7 1/lam {inv_lam}: ours (measured moments) {ours:.3f}, ours "
+              f"(exponential) {ours_exp:.3f}, [43] split-merge {theirs:.3f}, "
+              f"simulated {simulated:.3f}")
+        if not simulated <= ours * 1.03:
+            failed.append(f"fig7 1/lam={inv_lam}: simulated {simulated} > ours {ours} x 1.03")
+    if not any(np.isinf(theirs_all)):
+        failed.append("fig7: [43]'s split-merge bound diverges at no rate")
+
+    # one batch of the r = 1000 problems: fig11's file sizes at theta = 2
+    # (150 MB is fig9's and fig10's plan), fig12's rate scales at 200 MB,
+    # and Maximum EC's theta = 0, full-support problem on the 150 MB plan
+    cl = tahoe_testbed(device=dev)
+    catalog, problems = [], []
+    for file_mb in FIG11_FILE_MB:
+        lam, ks, chunk = paper_catalog(FIG_FILES, file_mb, device=dev)
+        eff = float(np.average(chunk, weights=lam.cpu().numpy()))
+        catalog.append((lam, ks, torch.tensor(chunk, dtype=torch.float32, device=dev), eff))
+        problems.append(JLCMProblem(lam=lam, k=ks, moments=cl.moments(eff), cost=cl.cost,
+                                    theta=2.0))
+    problems += [problems[3]._replace(lam=problems[3].lam * scale) for scale in FIG12_SCALES]
+    problems.append(max_ec_problem(problems[2]))
+    sols, _ = timed_solve_batch("figs 9-12 + Maximum EC", problems, dev)
+
+    # Fig. 9: four schemes on the 150 MB plan, by bound and by simulation
+    lam, ks, chunk_t, eff = catalog[2]
+    mom = problems[2].moments
+    jlcm = row(sols, 2)
+    schemes = {}
+
+    def score(name, pi, cost):
+        bound = float(mean_latency_bound(pi, lam, mom))
+        simulated = float(sim("fig9", gen("fig9"), pi, lam, cl, eff, FIG_REQUESTS["fig9"],
+                              per_file_chunk_mb=chunk_t).mean_latency())
+        schemes[name] = bound + 2.0 * cost
+        print(f"[4b] fig9 {name}: bound {bound:.3f}, simulated {simulated:.3f}, "
+              f"storage cost {cost:.1f}, objective {schemes[name]:.3f}")
+
+    score("JLCM", jlcm.pi, float(jlcm.cost))
+    score("Oblivious LB", proportional_lb_pi(jlcm.placement, ks, mom), float(jlcm.cost))
+    u = torch.rand((FIG_RANDOM_CP,) + tuple(jlcm.pi.shape), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(FIG_SEEDS["random_cp"]))
+    masks = random_placement_mask(u, jlcm.n)
+    pis = proportional_lb_pi(masks, ks, mom)
+    best = int(torch.argmin(mean_latency_bound(pis, lam, mom)))
+    score(f"Random CP (best of {FIG_RANDOM_CP})", pis[best],
+          float(torch.where(masks[best], cl.cost, 0.0).sum()))
+    mec = max_ec_report(problems[2], row(sols, 7))
+    score("Maximum EC", mec.pi, float(mec.cost))
+    others = min(v for k, v in schemes.items() if k != "JLCM")
+    if not schemes["JLCM"] <= others * 1.02:
+        failed.append(f"fig9: JLCM {schemes['JLCM']} > best other {others} x 1.02")
+
+    # Fig. 10: the 150 MB plan's latency by k group, with the sketch
+    res = sim("fig10", gen("fig10"), jlcm.pi, lam, cl, eff, FIG_REQUESTS["fig10"],
+              per_file_chunk_mb=chunk_t, sketch=DEFAULT_SKETCH)
+    fig10_checks(res, ks, jlcm.n, failed)
+
+    # Fig. 11: latency against file size, simulated and bounded
+    sims, bounds = [], []
+    for i, file_mb in enumerate(FIG11_FILE_MB):
+        lam_i, _, chunk_i, eff_i = catalog[i]
+        s = row(sols, i)
+        bounds.append(float(mean_latency_bound(s.pi, lam_i, problems[i].moments)))
+        sims.append(float(sim("fig11", gen("fig11"), s.pi, lam_i, cl, eff_i,
+                              FIG_REQUESTS["fig11"], per_file_chunk_mb=chunk_i).mean_latency()))
+    margs = [(sims[i] - sims[i - 1]) / (FIG11_FILE_MB[i] - FIG11_FILE_MB[i - 1])
+             for i in range(1, len(sims))]
+    print(f"[4b] fig11 file MB {FIG11_FILE_MB}: simulated {np.round(sims, 3).tolist()}, "
+          f"bound {np.round(bounds, 3).tolist()}, marginal s/MB {np.round(margs, 5).tolist()}")
+    if not margs[-1] > margs[0]:
+        failed.append(f"fig11: marginal s/MB does not rise {margs}")
+    for mb, simulated, bound_i in zip(FIG11_FILE_MB, sims, bounds):
+        if not simulated <= bound_i * 1.03:
+            failed.append(f"fig11 {mb} MB: simulated {simulated} > bound {bound_i} x 1.03")
+
+    # Fig. 12: cost and bound against the arrival rate scale, 200 MB
+    rows12 = [row(sols, i) for i in (4, 5, 6, 3)]
+    cost12 = [float(x.cost) for x in rows12]
+    tight12 = [float(x.latency_tight) for x in rows12]
+    print(f"[4b] fig12 rate scales {FIG12_SCALES + (1.0,)}: storage cost {cost12}, "
+          f"latency_tight {np.round(tight12, 3).tolist()}, mean n "
+          f"{[round(float(x.n.float().mean()), 3) for x in rows12]}")
+    if not cost12[-1] >= cost12[0] - 1e-6:
+        failed.append(f"fig12: higher load bought less redundancy {cost12}")
+    if not tight12[-1] > tight12[0]:
+        failed.append(f"fig12: the bound does not rise with load {tight12}")
+
+    # Fig. 13: the theta sweep on three 200 MB files, one batch
+    ks3 = torch.tensor([6.0, 7.0, 4.0], device=dev)
+    lam3 = torch.full((3,), 0.125 / 3, device=dev)
+    mom3 = cl.moments(float(np.mean(200.0 / np.array([6.0, 7.0, 4.0]))))
+    sols13, _ = timed_solve_batch("fig13 theta sweep", [
+        JLCMProblem(lam=lam3, k=ks3, moments=mom3, cost=cl.cost, theta=t)
+        for t in FIG13_THETAS], dev)
+    cost13, tight13 = sols13.cost.tolist(), sols13.latency_tight.tolist()
+    print(f"[4b] fig13 theta {FIG13_THETAS}: storage cost {np.round(cost13, 3).tolist()}, "
+          f"latency_tight {np.round(tight13, 3).tolist()}")
+    if not cost13[0] >= cost13[-1]:
+        failed.append(f"fig13: cost does not fall with theta {cost13}")
+    if not tight13[0] <= tight13[-1] * 1.05:
+        failed.append(f"fig13: latency does not rise with theta {tight13}")
+
+    worst = hold_figure_scans(scans, dev, probes)
+    print(f"[4b] figures: fcfs launches {launches}, phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    if failed:
+        raise AssertionError("figure claims failed: " + "; ".join(failed))
+    return launches, worst
+
+
+def fig10_checks(res, ks, n_files, failed: list) -> None:
+    """Fig. 10's per-k quantiles and per-class stats, and the sketch's
+    guarantees against the exact latencies on the card."""
+    lat, fid = res.latency, res.file_id
+    k_of = ks[fid]
+    groups = sorted(set(ks.tolist()))
+    for k_grp in groups:
+        sel = k_of == k_grp
+        lat_k = lat[sel].cpu().numpy()
+        qs = np.quantile(lat_k, [0.5, 0.9, 0.95])
+        print(f"[4b] fig10 k={int(k_grp)} (mean n {float(n_files[fid][sel].float().mean()):.2f}): "
+              f"p50 {qs[0]:.3f} p90 {qs[1]:.3f} p95 {qs[2]:.3f} mean {lat_k.mean():.3f} s")
+    class_of_file = np.searchsorted(groups, ks.cpu().numpy())
+    stats = res.per_class_stats(class_of_file, len(groups))
+    print(f"[4b] fig10 per_class_stats by k {groups}: count {stats.count.tolist()}, mean "
+          f"{np.round(stats.mean, 3).tolist()}, p95 {np.round(stats.p95, 3).tolist()}, "
+          f"p99 {np.round(stats.p99, 3).tolist()}")
+    n = lat.shape[0]
+    stream = res.stream
+    if int(stream.count) != n or int(stream.hist.sum()) != n:
+        failed.append(f"fig10 sketch: count {int(stream.count)}, hist sum "
+                      f"{int(stream.hist.sum())}, {n} requests")
+    mean, smean = float(lat.mean()), float(stream_mean(stream))
+    if not abs(smean - mean) <= 1e-4 * abs(mean):
+        failed.append(f"fig10 sketch: mean {smean} vs {mean}")
+    line = []
+    for q in (0.5, 0.9, 0.95, 0.99):
+        # the sketch's rank, ceil(q n) in float32, and its exact order statistic
+        rank = int(torch.ceil(q * stream.count.to(torch.float32)))
+        exact = float(torch.kthvalue(lat, rank).values)
+        est = float(stream_quantile(stream, q))
+        # its float32 edges step by the growth factor within two float32 ulps
+        if not exact <= est <= DEFAULT_SKETCH.growth * exact * (1 + 2**-22):
+            failed.append(f"fig10 sketch p{q}: {est} outside [{exact}, g x {exact}]")
+        line.append(f"p{round(q * 100)} {est:.4f} (x_({rank}) {exact:.4f})")
+    print(f"[4b] fig10 sketch over {n} requests: count {int(stream.count)}, mean {smean:.5f} "
+          f"(exact {mean:.5f}); " + ", ".join(line) + f"; growth {DEFAULT_SKETCH.growth:.6f}")
+
+
+def hold_figure_scans(scans: dict, dev, probes) -> float:
+    """Each figure's scans stacked on the seed axis (they share N and m)
+    against one run of the plain twin, bitwise; then B1 timed on fig10's
+    one-seed scan beside its byte bound and the serial chain alone."""
+    worst = 0.0
+    for fig, calls in scans.items():
+        t, masks, service = (torch.stack([c[0][j] for c in calls]) for j in range(3))
+        got = tuple(torch.stack([c[2][j] for c in calls]) for j in range(3))
+        zeros = torch.zeros(t.shape[:-1] + service.shape[-1:], device=dev)
+        plain_ms, want = cuda_ms(
+            lambda: fcfs_scan_plain(t, masks, service, zeros, zeros), reps=1)
+        err = check_parity(got, want, f"4b {fig} {tuple(service.shape)}")
+        worst = max(worst, err)
+        print(f"[4b] {fig}: {len(calls)} main-path scans stacked {tuple(service.shape)}: "
+              f"kernel == plain twin, busy max_abs_err {err}, plain twin {plain_ms:.1f} ms")
+    t, masks, service = (x[None].contiguous() for x in scans["fig10"][0][0][:3])
+    zeros = torch.zeros((1, service.shape[-1]), device=dev)
+    scan = lambda: fcfs_scan_cuda(t, masks, service, zeros, zeros)
+    scan()  # warm
+    kernel_ms, _ = cuda_ms(scan, reps=20)
+    b = bound(*service.shape)
+    chain_ms, chain_cycles = chain_time(dev, probes, service.shape[1])
+    print(f"[4b] B1 at fig10's {tuple(service.shape)}: kernel {kernel_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.5f} ms ({b['bound_gb'] * 1e3:.3f} MB, {b['bound_by']}); its serial "
+          f"chain alone at {service.shape[1]} steps {chain_ms:.4f} ms "
+          f"({chain_cycles:.3f} SM cycles a step)")
+    return worst
+
+
 def split_payloads(gen, count: int, k: int, dev) -> torch.Tensor:
     """``count`` random FILE_BYTES payloads on the card, each split into k
     zero-padded rows as ``pad_and_split`` does: (count, k, ceil(L / k))."""
@@ -1041,12 +1350,14 @@ def main() -> int:
     torch.cuda.set_device(dev)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    limits = phase_limits(dev, phase_build())
+    probes = phase_build()
+    limits = phase_limits(dev, probes)
     worst = phase_kernel_vs_plain(dev)
     phase_gf256_vs_plain(dev, limits)
     flash_err = phase_flash_vs_plain(dev)
     quick_launches, quick_err = phase_quickstart(dev)
     fleet_launches, record, sol, ks = phase_catalog(dev, limits)
+    figure_launches, figure_err = phase_figures(dev, probes)
     plane = phase_data_plane(dev, sol, ks, limits)
     serve_launches, flash = phase_serve(dev, limits)
     kernels = [{
@@ -1055,10 +1366,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/fcfs_queue.cu",
         "replaces": "src/repro/kernels/fcfs_queue.py:108",
         "parity": "bitwise",
-        "launches": quick_launches + fleet_launches,
+        "launches": quick_launches + fleet_launches + figure_launches,
         "launches_by_path": {"quickstart_simulate": quick_launches,
-                             "catalog_simulate_fleet": fleet_launches},
-        "max_abs_err": max(worst, quick_err, record["max_abs_err"]),
+                             "catalog_simulate_fleet": fleet_launches,
+                             "figures_simulate": figure_launches},
+        "max_abs_err": max(worst, quick_err, record["max_abs_err"], figure_err),
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
         "bound_ms": record["bound_ms"],

@@ -39,14 +39,31 @@ def _dbound_dz(pi: Tensor, eq: Tensor, varq: Tensor, z: Tensor) -> Tensor:
     return 1.0 - torch.sum(0.5 * pi * (1.0 + r), dim=-1)
 
 
-def optimal_z(pi: Tensor, eq: Tensor, varq: Tensor, *, iters: int = 80) -> Tensor:
+def optimal_z(
+    pi: Tensor,
+    eq: Tensor,
+    varq: Tensor,
+    *,
+    iters: int = 80,
+    instance_ndim: int | None = None,
+) -> Tensor:
     """Per-file minimizing z via bisection on the (monotone) derivative.
 
-    The bracket's ``scale`` is one max over the whole ``eq``/``varq``
-    arrays, as in the reference, not a per-row max. ``k_i == 1`` files
-    (``sum_j pi_ij`` within :data:`K1_TOL` of 1) get the bisection floor.
+    The bracket's ``scale`` is one max over an instance's ``eq``/``varq``,
+    not a per-row max. An instance is the trailing ``instance_ndim`` axes
+    of ``eq``/``varq`` (same rank as ``pi``); axes before them index
+    independent instances, each with its own scale, as the reference's
+    ``vmap`` gives it. ``None`` takes the whole arrays as one instance.
+    ``k_i == 1`` files (``sum_j pi_ij`` within :data:`K1_TOL` of 1) get the
+    bisection floor.
     """
-    scale = torch.amax(eq) + torch.sqrt(torch.amax(varq)) + 1.0
+    lead = 0 if instance_ndim is None else eq.dim() - instance_ndim
+    dims = tuple(range(lead, eq.dim()))
+    scale = (
+        torch.amax(eq, dim=dims, keepdim=True)
+        + torch.sqrt(torch.amax(varq, dim=dims, keepdim=True))
+        + 1.0
+    )[..., 0]
     batch = pi.shape[:-1]
     floor = torch.full(batch, -64.0, dtype=pi.dtype, device=pi.device) * scale
     lo = floor
@@ -61,11 +78,13 @@ def optimal_z(pi: Tensor, eq: Tensor, varq: Tensor, *, iters: int = 80) -> Tenso
 
 
 def file_latency_bounds(pi: Tensor, eq: Tensor, varq: Tensor) -> Tensor:
-    """Tightest per-file bound: min_z of Eq. (5). pi: (r, m) -> (r,).
+    """Tightest per-file bound: min_z of Eq. (5). pi: (..., r, m) -> (..., r),
+    with eq/varq (..., 1, m) or (..., r, m); each leading index is its own
+    instance (one bisection scale over its (r, m)).
 
     ``k_i == 1`` files return the infimum ``sum_j pi_ij E[Q_j]`` directly.
     """
-    z = optimal_z(pi, eq, varq)
+    z = optimal_z(pi, eq, varq, instance_ndim=2)
     bound = bound_given_z(pi, eq, varq, z)
     k = torch.sum(pi, dim=-1)
     inf_k1 = torch.sum(pi * eq, dim=-1)
@@ -107,10 +126,11 @@ def optimal_shared_z(
 ) -> Tensor:
     """Minimize Eq. (9) over the single auxiliary z (convex; bisection).
 
-    Batch-safe: pi (..., r, m), lam (..., r) -> z of shape (...,).
+    Batch-safe: pi (..., r, m), lam (..., r) -> z of shape (...,), each
+    leading index its own instance.
     """
     node_rates = node_arrival_rates(pi, lam)
     eq, varq = pk_sojourn_moments(node_rates, moments)
     lam_hat = torch.sum(lam, dim=-1)
     w = node_rates / lam_hat[..., None]  # plays the role of pi in the bound
-    return optimal_z(w, eq, varq, iters=iters)
+    return optimal_z(w, eq, varq, iters=iters, instance_ndim=1)

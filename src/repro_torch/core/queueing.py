@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -37,6 +38,20 @@ class ServiceMoments(NamedTuple):
     def var(self) -> Tensor:
         return self.m2 - (1.0 / self.mu) ** 2
 
+    def validate(self) -> None:
+        """Raise ``ValueError`` unless the moments can belong to a service
+        distribution: E[X^2] >= E[X]^2 and Lyapunov's E[X^3]^(1/3) >=
+        E[X^2]^(1/2), each with slack 1e-9. Host-side check (copies the
+        moments to the host)."""
+        mean, m2, m3 = (
+            np.asarray(torch.as_tensor(x).detach().cpu())
+            for x in (self.mean, self.m2, self.m3)
+        )
+        if (m2 < mean**2 - 1e-9).any():
+            raise ValueError("E[X^2] < E[X]^2: not a valid distribution")
+        if (m3 ** (1 / 3) < m2 ** (1 / 2) - 1e-9).any():
+            raise ValueError("moment sequence violates Lyapunov inequality")
+
 
 def exponential_moments(mu) -> ServiceMoments:
     """Moments of Exp(mu) service (baselines, and the serving router's
@@ -53,6 +68,22 @@ def shifted_exponential_moments(shift, rate) -> ServiceMoments:
     m2 = d**2 + 2.0 * d / r + 2.0 / r**2
     m3 = d**3 + 3.0 * d**2 / r + 6.0 * d / r**2 + 6.0 / r**3
     return ServiceMoments(mu=1.0 / m1, m2=m2, m3=m3)
+
+
+def fit_shifted_exponential(m1, m2) -> tuple[Tensor, Tensor]:
+    """Method-of-moments inverse of :func:`shifted_exponential_moments`.
+
+    Given the first two raw moments (E[X], E[X^2]) per node, the
+    exponential part carries all the variance (``s = sqrt(Var[X])``, with
+    Var floored at 1e-9, rate = 1/s) and the shift is the rest of the mean,
+    clamped to ``D >= 0``. Returns per-node ``(shift D_j, exp rate 1/s_j)``.
+    """
+    m1 = torch.as_tensor(m1, dtype=torch.float32)
+    m2 = torch.as_tensor(m2, dtype=torch.float32, device=m1.device)
+    var = torch.clamp_min(m2 - m1**2, 1e-9)
+    s = torch.sqrt(var)
+    d = torch.clamp_min(m1 - s, 0.0)
+    return d, 1.0 / s
 
 
 def utilisation(node_rates: Tensor, moments: ServiceMoments) -> Tensor:

@@ -1,7 +1,16 @@
 """Storage substrate in PyTorch: the calibrated testbed, the exact FCFS
-simulator (single run and seed fleet), GF(256) Reed-Solomon and the
-plan-driven batched codec with its repair inventory."""
-from .cluster import ClientSite, Cluster, GeoFabric, StorageNode, tahoe_testbed
+simulator (single run and seed fleet), streaming latency statistics,
+GF(256) Reed-Solomon and the plan-driven batched codec with its repair
+inventory."""
+from .cluster import (
+    ClientSite,
+    Cluster,
+    GeoFabric,
+    StorageNode,
+    homogeneous_cluster,
+    measured_fig6_moments,
+    tahoe_testbed,
+)
 from .codec import (
     CodecGroup,
     CodecPlan,
@@ -38,11 +47,27 @@ from .rs import (
     pad_and_split,
 )
 from .simulator import (
+    ClassLatencyStats,
     FleetResult,
     SimDraws,
     SimResult,
     generate_geo_workload,
     generate_workload,
+    per_class_latency_stats,
     simulate,
     simulate_fleet,
+    simulate_latency_cdf,
+)
+from .streaming import (
+    DEFAULT_SKETCH,
+    SketchSpec,
+    StreamingStats,
+    stream_from_values,
+    stream_init,
+    stream_mean,
+    stream_merge,
+    stream_quantile,
+    stream_reduce,
+    stream_var,
+    windowed_quantile_mean,
 )

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -100,6 +101,33 @@ class Cluster:
         e = torch.empty((n, self.m), dtype=torch.float32, device=self.device)
         return d + e.exponential_(generator=generator) / rate
 
+    def subset(self, keep: Sequence[int]) -> "Cluster":
+        """Surviving-node cluster after failures (elastic replanning)."""
+        return Cluster(tuple(self.nodes[i] for i in keep), device=self.device)
+
+    def perturbed(
+        self,
+        overhead_scale: float | Sequence[float] = 1.0,
+        bandwidth_scale: float | Sequence[float] = 1.0,
+    ) -> "Cluster":
+        """Cluster with drifted service parameters (same node identities).
+
+        Scales each node's overhead D_j and/or bandwidth bw_j (scalar =
+        every node, sequence = per node), so the sampled service
+        distribution and :meth:`moments` drift together.
+        """
+        ovh = np.broadcast_to(np.asarray(overhead_scale, float), (self.m,))
+        bwd = np.broadcast_to(np.asarray(bandwidth_scale, float), (self.m,))
+        nodes = tuple(
+            dataclasses.replace(
+                nd,
+                overhead_s=nd.overhead_s * float(o),
+                bandwidth_mbps=nd.bandwidth_mbps * float(b),
+            )
+            for nd, o, b in zip(self.nodes, ovh, bwd)
+        )
+        return Cluster(nodes, device=self.device)
+
 
 def tahoe_testbed(
     *,
@@ -133,6 +161,33 @@ def tahoe_testbed(
         for i, (d, bw) in enumerate(specs)
     )
     return Cluster(nodes, device=device)
+
+
+def homogeneous_cluster(
+    m: int,
+    overhead_s: float = 9.6,
+    bandwidth_mbps: float | None = None,
+    chunk_mb: float = 12.5,
+    sigma_s: float = 4.3,
+    cost: float = 1.0,
+    *,
+    device: str | torch.device = "cuda",
+) -> Cluster:
+    """All-identical cluster matching the paper's measured Fig.-6 moments:
+    sigma = chunk/bw gives bw = chunk/sigma; mean = overhead + sigma = 13.9."""
+    bw = bandwidth_mbps if bandwidth_mbps is not None else chunk_mb / sigma_s
+    nodes = tuple(
+        StorageNode(name=f"n{i}", site="X", overhead_s=overhead_s,
+                    bandwidth_mbps=bw, cost_per_chunk=cost)
+        for i in range(m)
+    )
+    return Cluster(nodes, device=device)
+
+
+def measured_fig6_moments(*, device: str | torch.device = "cuda") -> ServiceMoments:
+    """The paper's measured chunk service moments (single node view)."""
+    f32 = lambda x: torch.tensor([x], dtype=torch.float32, device=_device(device))
+    return ServiceMoments(mu=f32(1.0 / 13.9), m2=f32(211.8), m3=f32(3476.8))
 
 
 # ---------------------------------------------------------------------------

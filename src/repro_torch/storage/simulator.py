@@ -14,13 +14,18 @@ bound. :func:`simulate` runs one system; :func:`simulate_fleet` runs a
 batch of independent seeds as ONE (S, m)-wide scan (the what-if ensemble
 shape). Randomness comes from a ``torch.Generator`` on the simulated
 device, or from explicit :class:`SimDraws`, which is how the tests feed
-the reference's own draws. Segments, degraded reads, caches, sketches and
-streaming fleets are not ported yet (ROADMAP.md queue A, step 14).
+the reference's own draws. ``simulate(sketch=...)`` also folds the run's
+latencies into streaming moments and a quantile sketch
+(``storage/streaming.py``), the surface the Fig. 10-12 CDF checks read.
+:func:`per_class_latency_stats` and :func:`simulate_latency_cdf` are
+host-side reporting. Segments, degraded reads, caches and streaming fleets
+are not ported yet (ROADMAP.md queue A: A14, with A13 for the cache tier).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -28,6 +33,47 @@ from repro_torch.core.scheduling import madow_sample
 from repro_torch.kernels.fcfs_queue import fcfs_scan
 
 from .cluster import Cluster, GeoFabric
+from .streaming import SketchSpec, StreamingStats, stream_from_values
+
+
+def _host(x) -> np.ndarray:
+    return np.asarray(x.detach().cpu() if isinstance(x, Tensor) else x)
+
+
+class ClassLatencyStats(NamedTuple):
+    """Per-tenant-class empirical latency statistics (host-side reporting).
+
+    Shapes are all (C,). A class that received no (post-warmup) request
+    gets NaN mean and quantiles and count 0.
+    """
+
+    count: np.ndarray  # requests observed per class
+    mean: np.ndarray  # empirical mean latency
+    p95: np.ndarray  # empirical 95th percentile
+    p99: np.ndarray  # empirical 99th percentile
+
+
+def per_class_latency_stats(
+    latency, file_id, class_of_file, n_classes: int
+) -> ClassLatencyStats:
+    """Group simulated request latencies by class.
+
+    ``class_of_file`` maps file id -> class id. Host-side numpy (tensors
+    are copied to the host); arrays may carry leading axes, flattened here.
+    """
+    latency = _host(latency).ravel()
+    cls = _host(class_of_file)[_host(file_id).ravel()]
+    count = np.zeros(n_classes, np.int64)
+    mean = np.full(n_classes, np.nan)
+    p95 = np.full(n_classes, np.nan)
+    p99 = np.full(n_classes, np.nan)
+    for c in range(n_classes):
+        lat_c = latency[cls == c]
+        count[c] = lat_c.size
+        if lat_c.size:
+            mean[c] = lat_c.mean()
+            p95[c], p99[c] = np.percentile(lat_c, [95, 99])
+    return ClassLatencyStats(count=count, mean=mean, p95=p95, p99=p99)
 
 
 class SimDraws(NamedTuple):
@@ -45,9 +91,17 @@ class SimResult(NamedTuple):
     file_id: Tensor  # (N,) which file each request was for
     arrival: Tensor  # (N,) arrival times
     node_busy: Tensor  # (m,) total busy seconds per node
+    # streaming view of the same latencies, when `simulate` got a sketch
+    stream: StreamingStats | None = None
 
     def mean_latency(self) -> Tensor:
         return torch.mean(self.latency)
+
+    def per_class_stats(self, class_of_file, n_classes: int) -> ClassLatencyStats:
+        """Per-class empirical mean/p95/p99; see :func:`per_class_latency_stats`."""
+        return per_class_latency_stats(
+            self.latency, self.file_id, class_of_file, n_classes
+        )
 
     def per_file_mean(self, r: int) -> Tensor:
         """Mean simulated latency per file, shape (r,).
@@ -155,12 +209,14 @@ def simulate(
     *,
     drop_warmup: float = 0.1,
     per_file_chunk_mb: Tensor | None = None,
+    sketch: SketchSpec | None = None,
     draws: SimDraws | None = None,
 ) -> SimResult:
     """Simulate probabilistic scheduling for dispatch matrix ``pi`` (r, m).
 
     Runs on ``cluster.device``. ``per_file_chunk_mb`` (r,) gives
-    heterogeneous per-file chunk sizes (the §V.B catalog). ``draws``
+    heterogeneous per-file chunk sizes (the §V.B catalog). ``sketch`` also
+    folds the post-warmup latencies into ``SimResult.stream``. ``draws``
     replaces the generator's draws (arrivals, file marks, Madow uniforms,
     unit exponentials), each with a leading (N,) axis.
     """
@@ -182,12 +238,21 @@ def simulate(
     masks = madow_sample(draws.u, pi[draws.file_id])
     latency, _, busy = fcfs_scan(draws.arrival, masks, service)
     warm = int(draws.arrival.shape[-1] * drop_warmup)
+    latency = latency[warm:]
     return SimResult(
-        latency=latency[warm:],
+        latency=latency,
         file_id=draws.file_id[warm:],
         arrival=draws.arrival[warm:],
         node_busy=busy,
+        stream=None if sketch is None else stream_from_values(latency, sketch),
     )
+
+
+def simulate_latency_cdf(result: SimResult, qs: np.ndarray | None = None):
+    """Empirical CDF knots ``(qs, quantiles)`` of a run's latencies, host
+    numpy (Fig. 10-style output); ``qs`` defaults to 0.01..0.99."""
+    qs = np.linspace(0.01, 0.99, 99) if qs is None else qs
+    return qs, np.quantile(_host(result.latency), qs)
 
 
 def simulate_fleet(
@@ -214,7 +279,7 @@ def simulate_fleet(
     seeds together. ``draws`` replaces the generator's draws, each with a
     leading (S, N) axis and ``site_id`` set.
 
-    Not ported yet (ROADMAP.md queue A, step 14): ``stream=True``,
+    Not ported yet (ROADMAP.md queue A, A14): ``stream=True``,
     ``n_chunks > 1``, ``cache_ttl`` and sharding seeds over several
     devices; each raises ``NotImplementedError``.
     """
