@@ -100,6 +100,37 @@ Phases, each raising on failure:
    yardstick only; the port never calls it), against its 3xTF32 bound and
    the time of the same three passes at the rate phase 1 measured.
 
+7. The planner's whole problem, each plan simulated through B1:
+   7a. ``benchmarks/jlcm_scaling.py``'s ``jlcm_hierarchical`` section (its
+       ``SOLVE_KW``, the testbed at theta = 2): its volume properties (a
+       V = 1 volume solve is the file solve bitwise, 4-file volumes gather
+       exactly and cost 4x), the clustered plan within 5 % of the dense
+       r = 1000 solve (and its Frank-Wolfe gap), ``synthetic_catalog`` of
+       10^6 files planned through ``cluster_catalog`` and
+       ``solve_hierarchical``, materialized to a (10^6, 12) plan whose
+       ``evaluate_pi`` equals the cluster solve's ``latency_tight`` within
+       rtol 1e-4; ``resolve_incremental`` after a seeded tenth of the
+       clusters' rates x1.5 (the moved count re-solved, padded to the next
+       power of two, within 5 % of a cold re-solve); a fleet of 64 seeds x
+       100 000 requests of the 10^6-file plan, whose marks must follow the
+       cluster rates (max |share - rate share| <= 0.01) and whose mean is
+       held within the bound x 1.05 where the plan's queues are stable.
+       The walls of the 10^6-file plan and the dense r = 1000 solve are
+       printed, not gated.
+   7b. ``benchmarks/tenant_tradeoff.py`` at full size: 5 weights x 3
+       deadlines as one ``solve_batch`` (400 iterations), each plan
+       simulated with 60 000 requests; every assert of the benchmark, and
+       ``empirical_objective_device`` on the card within rtol 1e-5 of the
+       host ``empirical_objective``.
+   7c. The geo fabric (``geo_testbed``, 4 client sites): a one-site
+       ``geo_problem`` solves bitwise as the plain problem; one batch of
+       the NJ- and TX-anchored mixes (mass on the TX nodes must rise by
+       more than 0.5) and ``benchmarks/fleet_scale.py``'s four files at
+       its client shares, whose plan a 64 x 100 000 fleet simulates across
+       the sites: EU's mean above NJ's, the mean within the geo bound x
+       1.05.
+   Phase 7's scans are held to the plain twin bitwise like phases 3-4b.
+
 The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
 the card could take for the work: each input read once and each output
 written once at 3.35 TB/s, or the operations at the peak rate of the type
@@ -113,7 +144,7 @@ The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 6 (4b included) every launch count is set to 0 just before
+In phases 3 to 7 (4b included) every launch count is set to 0 just before
 each main-path call (simulator, encode, decode, prefill) and read just after;
 each call must have launched its kernel. Every kernel call those paths
 make is recorded, and its output is held against the plain twin on the
@@ -144,13 +175,29 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import (  # noqa: E402
     JLCMProblem,
+    ServiceMoments,
+    build_problem,
+    cluster_catalog,
+    duality_gap,
+    effective_chunk_mb,
+    empirical_objective,
+    empirical_objective_device,
+    evaluate_pi,
     exponential_moments,
+    geo_problem,
+    make_objective,
+    materialize,
     mean_latency_bound,
+    node_arrival_rates,
     proportional_lb_pi,
     random_placement_mask,
+    resolve_incremental,
     solve,
     solve_batch,
+    solve_hierarchical,
     split_merge_bound,
+    synthetic_catalog,
+    volume_catalog,
 )
 from repro_torch.core.jlcm import max_ec_problem, max_ec_report  # noqa: E402
 from repro_torch.kernels import fcfs_queue, ops  # noqa: E402
@@ -176,6 +223,7 @@ from repro_torch.storage import (  # noqa: E402
     GeoFabric,
     decode_batch,
     encode_batch,
+    geo_testbed,
     homogeneous_cluster,
     lost_chunk_inventory,
     measured_fig6_moments,
@@ -221,6 +269,22 @@ FIG7_INV_LAMBDA = (60, 40, 32, 24, 18, 14, 12, 11, 10.5, 10, 9.5, 9)
 FIG11_FILE_MB = (50.0, 100.0, 150.0, 200.0)
 FIG12_SCALES = (0.55, 0.7, 0.85)  # and 1.0, which is fig11's 200 MB problem
 FIG13_THETAS = (0.5, 1.0, 2.0, 10.0, 50.0, 100.0, 150.0, 200.0)
+# phase 7: the planner's whole problem. 7a is benchmarks/jlcm_scaling.py's
+# jlcm_hierarchical section (its catalog sizes and SOLVE_KW, the 12-node
+# testbed at theta = 2), 7b benchmarks/tenant_tradeoff.py at full size and
+# 7c the geo fabric (geo_testbed's four client sites) with
+# benchmarks/fleet_scale.py's four files
+HIER_FILES, HIER_DENSE_FILES = 1_000_000, 1000
+HIER_SOLVE_KW = dict(max_iters=300, eps=0.01)
+HIER_MOVED, HIER_SURGE = 0.1, 1.5  # share of the clusters whose rate moves, and by what
+PLAN_FLEET = dict(n_seeds=64, n_requests=100_000)  # 7a's and 7c's fleets
+PLAN_THETA, PLAN_CHUNK_MB = 2.0, 12.5
+TENANT_LAM, TENANT_CLASS = (0.0675, 0.0525, 0.03, 0.0225), (0, 0, 1, 1)
+TENANT_WEIGHTS, TENANT_DEADLINES = (1.0, 2.0, 4.0, 8.0, 16.0), (float("inf"), 45.0, 35.0)
+TENANT_TAIL_WEIGHT, TENANT_REQUESTS, TENANT_MAX_ITERS = 10.0, 60_000, 400
+GEO_LAM, GEO_MIX = (0.036, 0.028, 0.016, 0.012), (0.4, 0.25, 0.25, 0.1)
+PLAN_K = (4.0, 4.0, 6.0, 6.0)  # the 4-file catalogs of 7b and 7c
+GEO_ANCHORED = dict(NJ=(0.9, 0.04, 0.03, 0.03), TX=(0.04, 0.9, 0.03, 0.03))
 PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
@@ -1121,21 +1185,30 @@ def fig10_checks(res, ks, n_files, failed: list) -> None:
           f"(exact {mean:.5f}); " + ", ".join(line) + f"; growth {DEFAULT_SKETCH.growth:.6f}")
 
 
+def hold_stacked(calls, phase: str, name: str, dev) -> float:
+    """Main-path scans that share N and m (batched or not), joined on the
+    seed axis and held bitwise against one run of the plain twin, whose
+    time is a loop over N whatever the seeds; returns the largest busy
+    |difference|."""
+    n, m = calls[0][0][2].shape[-2:]
+    join = lambda xs, *event: torch.cat([x.reshape((-1,) + event) for x in xs])
+    t, masks, service = (join([c[0][j] for c in calls], *event)
+                         for j, event in enumerate([(n,), (n, m), (n, m)]))
+    got = tuple(join([c[2][j] for c in calls], *event)
+                for j, event in enumerate([(n,), (m,), (m,)]))
+    zeros = torch.zeros(t.shape[:-1] + service.shape[-1:], device=dev)
+    plain_ms, want = cuda_ms(lambda: fcfs_scan_plain(t, masks, service, zeros, zeros), reps=1)
+    err = check_parity(got, want, f"{phase} {name} {tuple(service.shape)}")
+    print(f"[{phase}] {name}: {len(calls)} main-path scans stacked {tuple(service.shape)}: kernel == plain twin, busy max_abs_err {err}, "
+          f"plain twin {plain_ms:.1f} ms")
+    return err
+
+
 def hold_figure_scans(scans: dict, dev, probes) -> float:
     """Each figure's scans stacked on the seed axis (they share N and m)
     against one run of the plain twin, bitwise; then B1 timed on fig10's
     one-seed scan beside its byte bound and the serial chain alone."""
-    worst = 0.0
-    for fig, calls in scans.items():
-        t, masks, service = (torch.stack([c[0][j] for c in calls]) for j in range(3))
-        got = tuple(torch.stack([c[2][j] for c in calls]) for j in range(3))
-        zeros = torch.zeros(t.shape[:-1] + service.shape[-1:], device=dev)
-        plain_ms, want = cuda_ms(
-            lambda: fcfs_scan_plain(t, masks, service, zeros, zeros), reps=1)
-        err = check_parity(got, want, f"4b {fig} {tuple(service.shape)}")
-        worst = max(worst, err)
-        print(f"[4b] {fig}: {len(calls)} main-path scans stacked {tuple(service.shape)}: "
-              f"kernel == plain twin, busy max_abs_err {err}, plain twin {plain_ms:.1f} ms")
+    worst = max(hold_stacked(calls, "4b", fig, dev) for fig, calls in scans.items())
     t, masks, service = (x[None].contiguous() for x in scans["fig10"][0][0][:3])
     zeros = torch.zeros((1, service.shape[-1]), device=dev)
     scan = lambda: fcfs_scan_cuda(t, masks, service, zeros, zeros)
@@ -1340,6 +1413,278 @@ def phase_serve(dev, limits: dict) -> tuple[int, dict]:
     return sum(prefill_launches), record
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the planner's whole problem (hierarchical, tenant, geo).
+# ---------------------------------------------------------------------------
+
+
+def best_wall(fn, reps: int = 2):
+    """Least host seconds over ``reps`` calls of ``fn`` (each ended by a
+    synchronize), and the last call's result."""
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def on_card(x, dev, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+def hier_volumes(dev, cl, failed: list) -> None:
+    """jlcm_scaling's ``_assert_volume_bitwise`` on the card: a V = 1 volume
+    problem IS the file problem (bitwise solve), 4-file volumes gather
+    exactly and cost 4x at the file level."""
+    cat = synthetic_catalog(64, k_classes=(4,), file_mb=(100.0,), rate_sigma=0.0)
+    mom = cl.moments(float(cat.chunk_mb[0]))
+    file_prob = JLCMProblem(lam=on_card(cat.lam, dev), k=on_card(cat.k, dev, torch.int32),
+                            moments=mom, cost=cl.cost, theta=PLAN_THETA)
+    vol = solve(build_problem(volume_catalog(cat, volume_mb=100.0), mom, cl.cost, PLAN_THETA),
+                **HIER_SOLVE_KW)
+    ref = solve(file_prob, **HIER_SOLVE_KW)
+    bitwise = torch.equal(vol.pi, ref.pi) and torch.equal(vol.objective, ref.objective)
+    h4 = volume_catalog(cat, volume_mb=400.0)
+    plan, sol4 = solve_hierarchical(h4, mom, cl.cost, PLAN_THETA, **HIER_SOLVE_KW)
+    files = materialize(plan)
+    gather = torch.equal(files, plan.cluster_pi[on_card(h4.cluster_of_file(), dev, torch.int64)])
+    ev = evaluate_pi(file_prob, files)
+    rel_lat = abs(float(ev.latency) - float(sol4.latency)) / max(1.0, abs(float(sol4.latency)))
+    rel_cost = abs(float(ev.cost) - 4 * float(sol4.cost)) / max(1.0, 4 * float(sol4.cost))
+    print(f"[7a] volumes: V = 1 solve == file solve bitwise {bitwise}; 4-file volumes: "
+          f"gather exact {gather}, latency rel err {rel_lat:.3g}, file cost / volume cost "
+          f"{float(ev.cost) / float(sol4.cost):.6f}")
+    if not (bitwise and gather and rel_lat < 1e-3 and rel_cost < 1e-5):
+        failed.append("7a volume properties")
+
+
+def phase_hierarchical(dev) -> tuple[int, list, dict]:
+    """7a: jlcm_scaling.py's jlcm_hierarchical section at 10^6 files, its
+    checks held on the card, the incremental re-solve, and the 10^6-file
+    plan simulated by a 64-seed fleet through B1. Returns B1's launches,
+    the fleet's recorded scans and B1's time on them."""
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    cl = tahoe_testbed(device=dev)
+    hier_volumes(dev, cl, failed)
+
+    def plan_catalog(cat):  # the timed region: aggregation + cluster solve
+        h = cluster_catalog(cat)
+        mom = cl.moments(effective_chunk_mb(h))
+        return (h, mom) + solve_hierarchical(h, mom, cl.cost, PLAN_THETA, **HIER_SOLVE_KW)
+
+    cat1k = synthetic_catalog(HIER_DENSE_FILES)
+    dense = JLCMProblem(lam=on_card(cat1k.lam, dev), k=on_card(cat1k.k, dev),
+                        moments=cl.moments(float(np.average(cat1k.chunk_mb, weights=cat1k.lam))),
+                        cost=cl.cost, theta=PLAN_THETA)
+    wall_dense, sol_dense = best_wall(lambda: solve(dense, **HIER_SOLVE_KW))
+    _, _, plan1k, _ = plan_catalog(cat1k)
+    obj_hier = float(evaluate_pi(dense, materialize(plan1k)).objective)
+    obj_dense = float(sol_dense.objective)
+    gap_pct = 100 * (obj_hier - obj_dense) / abs(obj_dense)
+    fw_gap = duality_gap(dense, materialize(plan1k))
+    print(f"[7a] r = {HIER_DENSE_FILES}: dense objective {obj_dense:.2f} "
+          f"({int(sol_dense.iterations)} iterations), clustered plan on the dense problem "
+          f"{obj_hier:.2f} ({gap_pct:+.3f} %), Frank-Wolfe gap {fw_gap:.1f}")
+    if not abs(gap_pct) < 5.0:
+        failed.append(f"7a clustered plan {gap_pct:.2f} % off the dense r = 1000 solve")
+
+    cat = synthetic_catalog(HIER_FILES)
+    wall_big, (h, mom, plan, sol) = best_wall(lambda: plan_catalog(cat))
+    eff = effective_chunk_mb(h)
+    print(f"[7a] walls: the {HIER_FILES}-file plan (aggregation + {h.n_clusters}-row solve, "
+          f"{int(sol.iterations)} iterations) {1e3 * wall_big:.2f} ms; the dense r = "
+          f"{HIER_DENSE_FILES} solve {1e3 * wall_dense:.2f} ms (best of 2 each)")
+    files = materialize(plan)
+    cid = on_card(h.cluster_of_file(), dev, torch.int64)
+    if files.shape != (HIER_FILES, NODES) or not torch.equal(files, plan.cluster_pi[cid]):
+        failed.append(f"7a materialize: {tuple(files.shape)} or not an exact gather")
+    full = JLCMProblem(lam=on_card(cat.lam, dev), k=on_card(cat.k, dev), moments=mom,
+                       cost=cl.cost, theta=PLAN_THETA)
+    ev = evaluate_pi(full, files)
+    tight = float(sol.latency_tight)
+    rel = abs(float(ev.latency_tight) - tight) / tight
+    print(f"[7a] evaluate_pi on the {HIER_FILES}-file problem: latency_tight "
+          f"{float(ev.latency_tight):.6f} vs the cluster solve's {tight:.6f} (rel {rel:.3g}); "
+          f"objective {float(ev.objective):.1f} vs {float(sol.objective):.1f}")
+    if not rel <= 1e-4:
+        failed.append(f"7a file-level latency_tight off the cluster one by {rel:.3g}")
+
+    rng = np.random.default_rng(0)
+    hot = rng.choice(h.n_clusters, max(1, round(HIER_MOVED * h.n_clusters)), replace=False)
+    new_lam = plan.cluster_lam.copy()
+    new_lam[hot] *= HIER_SURGE
+    inc_s, (inc, info) = best_wall(lambda: resolve_incremental(
+        plan, new_lam, mom, cl.cost, PLAN_THETA, **HIER_SOLVE_KW), reps=1)
+    prob_new = build_problem(h._replace(lam=new_lam), mom, cl.cost, PLAN_THETA)
+    cold = float(solve(prob_new, **HIER_SOLVE_KW).objective)
+    rel_inc = (float(evaluate_pi(prob_new, inc.cluster_pi).objective) - cold) / abs(cold)
+    print(f"[7a] resolve_incremental after {hot.size} of {h.n_clusters} clusters x{HIER_SURGE}: "
+          f"{info}, {1e3 * inc_s:.2f} ms; objective {100 * rel_inc:+.4f} % against a cold re-solve")
+    if info.n_resolved != hot.size or info.padded_rows != 1 << (hot.size - 1).bit_length():
+        failed.append(f"7a incremental: {info} for {hot.size} moved clusters")
+    if not rel_inc < 0.05:
+        failed.append(f"7a incremental plan {100 * rel_inc:.2f} % above a cold re-solve")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lam_cs = on_card(cat.lam, dev)[None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded(simulator, "fcfs_scan") as calls:
+        fleet, launches = counted("7a simulate_fleet", lambda: simulate_fleet(
+            gen, files, lam_cs, GeoFabric.single_site(cl), eff, **PLAN_FLEET))
+        mean = float(fleet.mean_latency())
+    fleet_s = time.perf_counter() - t0
+    share = torch.bincount(cid[fleet.file_id.reshape(-1)], minlength=h.n_clusters)
+    share_err = float(np.abs(share.cpu().numpy() / fleet.file_id.numel() - h.lam / h.lam.sum()).max())
+    rho = float((node_arrival_rates(sol.pi, on_card(h.lam, dev)) / mom.mu).max())
+    tenth = fleet.latency.shape[1] // 10
+    first, last = (float(x.mean()) for x in (fleet.latency[:, :tenth], fleet.latency[:, -tenth:]))
+    print(f"[7a] fleet of the {HIER_FILES}-file plan, {PLAN_FLEET['n_seeds']} seeds x "
+          f"{PLAN_FLEET['n_requests']} requests: mean {mean:.3f} s, bound {tight:.3f} s "
+          f"({mean / tight:.4f} of it), first / last tenth {first:.1f} / {last:.1f} s, the "
+          f"plan's busiest node at utilisation {rho:.4f}; wall {fleet_s:.3f} s, fcfs launches "
+          f"{launches}; requests per cluster vs cluster rates max |diff| {share_err:.2e}")
+    if not bool(torch.isfinite(fleet.latency).all()):
+        failed.append("7a fleet latencies are not all finite")
+    # the P-K bound holds for stable queues only: at SOLVE_KW the reference's
+    # own plan overloads a node too (ROADMAP.md §C), and is not gated there
+    if rho < 1.0 and not mean <= 1.05 * tight:
+        failed.append(f"7a fleet mean {mean} against bound {tight} x 1.05")
+    if not share_err <= 0.01:
+        failed.append(f"7a marks' cluster shares off the rates by {share_err}")
+    t, masks, service = calls[-1][0][:3]
+    zeros = torch.zeros(t.shape[:-1] + service.shape[-1:], device=dev)
+    kernel_ms, _ = cuda_ms(lambda: fcfs_scan_cuda(t, masks, service, zeros, zeros), reps=5)
+    record = dict(ms=kernel_ms, **bound(*service.shape))
+    print(f"[7a] B1 at {tuple(service.shape)}: kernel {kernel_ms:.4f} ms, bound "
+          f"{record['bound_ms']:.4f} ms ({record['bound_gb']:.3f} GB); phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s (its scan is held with 7c's)")
+    if failed:
+        raise AssertionError("phase 7a failed: " + "; ".join(failed))
+    return launches, calls, record
+
+
+def phase_tenant(dev) -> tuple[int, float]:
+    """7b: tenant_tradeoff.py at full size: the 5 weights x 3 deadlines as
+    one solve_batch, each plan simulated through B1, every assert of the
+    benchmark, and the empirical objective on the card against the host's."""
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    cl = tahoe_testbed(device=dev)
+    lam, k = on_card(TENANT_LAM, dev), on_card(PLAN_K, dev)
+    grid = [(w, d) for d in TENANT_DEADLINES for w in TENANT_WEIGHTS]
+    specs = [make_objective(TENANT_CLASS, weight=(w, 1.0), deadline=(d, None),
+                            tail_weight=(TENANT_TAIL_WEIGHT if np.isfinite(d) else 0.0, 0.0),
+                            device=dev) for w, d in grid]
+    problems = [JLCMProblem(lam=lam, k=k, moments=cl.moments(PLAN_CHUNK_MB), cost=cl.cost,
+                            theta=PLAN_THETA, objective=spec) for spec in specs]
+    wall, sols = best_wall(lambda: solve_batch(problems, max_iters=TENANT_MAX_ITERS), reps=1)
+    iters = sols.iterations.tolist()
+    print(f"[7b] solve_batch of {len(grid)} tenant problems: iterations {iters}, wall "
+          f"{wall:.3f} s ({wall / max(iters) * 1e3:.2f} ms an iteration)")
+    scans, stats, premium, launches = [], {}, {}, 0
+    for i, (w, d) in enumerate(grid):
+        gen = torch.Generator(device=dev).manual_seed(0)  # every point on one stream
+        with recorded(simulator, "fcfs_scan") as calls:
+            res, n = counted("7b simulate", lambda: simulate(
+                gen, sols.pi[i], lam, cl, PLAN_CHUNK_MB, TENANT_REQUESTS))
+        launches += n
+        scans.extend(calls)
+        st = res.per_class_stats(np.asarray(TENANT_CLASS), 2)
+        stats[(w, d)] = st
+        req_class = torch.tensor(TENANT_CLASS, device=dev)[res.file_id]
+        premium[(w, d)] = res.latency[req_class == 0].cpu().numpy()
+        on_dev = float(empirical_objective_device(res.latency, res.file_id, specs[i]))
+        host = empirical_objective(res.latency, res.file_id, specs[i])
+        if not abs(on_dev - host) <= 1e-5 * abs(host):
+            failed.append(f"7b w={w} d={d}: empirical objective {on_dev} on the card, {host} host")
+        print(f"[7b] w={w} d={d}: bound premium {float(sols.class_latency[i, 0]):.2f} "
+              f"background {float(sols.class_latency[i, 1]):.2f} tail "
+              f"{min(float(sols.class_tail[i, 0]), 1.0):.4f}; simulated premium mean "
+              f"{st.mean[0]:.2f} p95 {st.p95[0]:.2f} p99 {st.p99[0]:.2f}, background mean "
+              f"{st.mean[1]:.2f} p99 {st.p99[1]:.2f}; cost {float(sols.cost[i]):.1f}; "
+              f"empirical objective {on_dev:.5f} (host {host:.5f})")
+    i_base, i_top = grid.index((TENANT_WEIGHTS[0], TENANT_DEADLINES[0])), grid.index(
+        (TENANT_WEIGHTS[-1], TENANT_DEADLINES[0]))
+    base, top = stats[grid[i_base]], stats[grid[i_top]]
+    if not float(sols.class_latency[i_top, 0]) < float(sols.class_latency[i_base, 0]):
+        failed.append("7b: weighting did not tighten the premium bound")
+    if not (top.mean[0] < base.mean[0] and top.p99[0] < base.p99[0]):
+        failed.append(f"7b: premium mean/p99 {top.mean[0]}/{top.p99[0]} not below uniform "
+                      f"{base.mean[0]}/{base.p99[0]}")
+    d_t = TENANT_DEADLINES[-1]
+    exc_tail = float((premium[(TENANT_WEIGHTS[0], d_t)] > d_t).mean())
+    exc_mean = float((premium[(TENANT_WEIGHTS[0], TENANT_DEADLINES[0])] > d_t).mean())
+    bound_t = float(sols.class_tail[grid.index((TENANT_WEIGHTS[0], d_t)), 0])
+    print(f"[7b] d = {d_t}: premium tail bound {bound_t:.4f}, simulated P[T > d] {exc_tail:.4f} "
+          f"with the tail term, {exc_mean:.4f} mean-only")
+    if not (bound_t >= exc_tail and exc_tail < exc_mean):
+        failed.append(f"7b tail: bound {bound_t}, exceedance {exc_tail} vs mean-only {exc_mean}")
+    worst = hold_stacked(scans, "7b", "tenant", dev)
+    print(f"[7b] fcfs launches {launches}, phase wall {time.perf_counter() - t_phase:.3f} s")
+    if failed:
+        raise AssertionError("phase 7b failed: " + "; ".join(failed))
+    return launches, worst
+
+
+def phase_geo(dev) -> tuple[int, list]:
+    """7c: the geo fabric. The C == 1 collapse solves bitwise as the plain
+    problem; placement follows the client mix; fleet_scale.py's files
+    planned as a geo problem and simulated across the four client sites.
+    Returns B1's launches and the fleet's recorded scans."""
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    cl = tahoe_testbed(device=dev)
+    fabric = geo_testbed(cl)
+    lam, k = np.asarray(GEO_LAM, np.float32), np.asarray(PLAN_K, np.float32)
+    mom = cl.moments(PLAN_CHUNK_MB)
+    plain = JLCMProblem(lam=on_card(lam, dev), k=on_card(k, dev), moments=mom, cost=cl.cost,
+                        theta=PLAN_THETA)
+    collapsed = geo_problem(lam, k, ServiceMoments(*(x[None] for x in mom)), np.ones((4, 1)),
+                            cl.cost, PLAN_THETA)
+    a, b = solve(plain, max_iters=150), solve(collapsed, max_iters=150)
+    same = collapsed.geo is None and all(
+        torch.equal(getattr(a, f), getattr(b, f)) for f in ("pi", "objective", "latency_tight"))
+    print(f"[7c] a one-site geo problem collapses to the plain one and solves bitwise: {same}")
+    if not same:
+        failed.append("7c: the C == 1 geo problem does not solve bitwise as the plain one")
+    # the two anchored mixes and fleet_scale.py's client shares, one batch
+    site_mom = fabric.moments(PLAN_CHUNK_MB)
+    mix = np.asarray(GEO_MIX)
+    mixes = [np.tile(m, (4, 1)) for m in (*GEO_ANCHORED.values(), mix)]
+    sols = solve_batch([geo_problem(lam, k, site_mom, m, cl.cost, PLAN_THETA)
+                        for m in mixes], max_iters=300)
+    mass = [float(sols.pi[i][:, 4:8].sum()) for i in range(len(GEO_ANCHORED))]
+    print(f"[7c] mass on the TX nodes under the NJ- and TX-anchored mixes: {mass} "
+          f"(iterations {sols.iterations.tolist()})")
+    if not mass[1] > mass[0] + 0.5:
+        failed.append(f"7c: placement does not follow the client mix {mass}")
+    sol = row(sols, len(GEO_ANCHORED))
+    lam_cs = on_card(mix[:, None] * lam[None, :], dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with recorded(simulator, "fcfs_scan") as calls:
+        fleet, launches = counted("7c simulate_fleet", lambda: simulate_fleet(
+            gen, sol.pi, lam_cs, fabric, PLAN_CHUNK_MB, **PLAN_FLEET))
+    per_site = fleet.per_site_mean(fabric.n_sites).tolist()
+    mean, bound = float(fleet.mean_latency()), float(sol.latency_tight)
+    print(f"[7c] geo plan n_i {sol.n.tolist()}, bound {bound:.3f} s; fleet "
+          f"{PLAN_FLEET['n_seeds']} x {PLAN_FLEET['n_requests']}: mean {mean:.3f} s "
+          f"({mean / bound:.4f} of the bound), per site {dict(zip(fabric.site_names, np.round(per_site, 3)))}")
+    if not per_site[fabric.site_index("EU")] > per_site[0]:
+        failed.append(f"7c: EU {per_site} not above the reference site")
+    if not mean <= 1.05 * bound:
+        failed.append(f"7c: fleet mean {mean} above the geo bound {bound} x 1.05")
+    print(f"[7c] fcfs launches {launches}, phase wall {time.perf_counter() - t_phase:.3f} s "
+          f"(its scan is held with 7a's)")
+    if failed:
+        raise AssertionError("phase 7c failed: " + "; ".join(failed))
+    return launches, calls
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)  # keep output if the run is cut
@@ -1360,21 +1705,35 @@ def main() -> int:
     figure_launches, figure_err = phase_figures(dev, probes)
     plane = phase_data_plane(dev, sol, ks, limits)
     serve_launches, flash = phase_serve(dev, limits)
+    t7 = time.perf_counter()
+    hier_launches, hier_calls, hier = phase_hierarchical(dev)
+    tenant_launches, tenant_err = phase_tenant(dev)
+    geo_launches, geo_calls = phase_geo(dev)
+    # 7a's and 7c's fleets share (N, m): one plain-twin run holds both
+    fleets_err = hold_stacked(hier_calls + geo_calls, "7", "7a and 7c fleets", dev)
+    print(f"[7] phase 7 wall {time.perf_counter() - t7:.3f} s")
+    by_path = {"quickstart_simulate": quick_launches,
+               "catalog_simulate_fleet": fleet_launches,
+               "figures_simulate": figure_launches,
+               "hierarchical_simulate_fleet": hier_launches,
+               "tenant_simulate": tenant_launches,
+               "geo_simulate_fleet": geo_launches}
     kernels = [{
         "name": "fcfs_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fcfs_queue.cu",
         "replaces": "src/repro/kernels/fcfs_queue.py:108",
         "parity": "bitwise",
-        "launches": quick_launches + fleet_launches + figure_launches,
-        "launches_by_path": {"quickstart_simulate": quick_launches,
-                             "catalog_simulate_fleet": fleet_launches,
-                             "figures_simulate": figure_launches},
-        "max_abs_err": max(worst, quick_err, record["max_abs_err"], figure_err),
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max(worst, quick_err, record["max_abs_err"], figure_err,
+                           tenant_err, fleets_err),
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
         "bound_ms": record["bound_ms"],
         "bound_by": record["bound_by"],
+        "ms_hierarchical_fleet": hier["ms"],  # phase 7a's (64, 100 000, 12)
+        "bound_ms_hierarchical_fleet": hier["bound_ms"],
         "library_ms": None,
     }]
     for name, replaces, path in [

@@ -12,8 +12,14 @@ derivative
 
 which is nondecreasing in z, -> 1 - k_i as z -> -inf and -> 1 as z -> +inf.
 For k_i == 1 no root exists; the infimum is the closed form
-``sum_j pi_ij E[Q_j]``, handled by an explicit branch. Everything is
-vectorized over files and runs where its tensors live.
+``sum_j pi_ij E[Q_j]``, handled by an explicit branch.
+
+Beyond the paper's mean bound, :func:`tail_probability_bounds` gives the
+z-parameterized tail bound ``P[T_i > d]`` from the same order-statistic
+machinery (the objective layer's tail terms, ``core/objectives.py``), and
+:func:`shared_z_latency` / :func:`optimal_shared_z` take optional per-file
+weights (a differentiated, multi-tenant mean) and background node rates.
+Everything is vectorized over files and runs where its tensors live.
 """
 from __future__ import annotations
 
@@ -39,6 +45,20 @@ def _dbound_dz(pi: Tensor, eq: Tensor, varq: Tensor, z: Tensor) -> Tensor:
     return 1.0 - torch.sum(0.5 * pi * (1.0 + r), dim=-1)
 
 
+def _instance_scale(eq: Tensor, varq: Tensor, instance_ndim: int | None) -> Tensor:
+    """``max(eq) + sqrt(max(varq)) + 1`` over each instance: the trailing
+    ``instance_ndim`` axes of ``eq``/``varq`` (``None``: all of them). The
+    result keeps one unit axis fewer than the instance, so it broadcasts
+    against a per-file (or per-instance) bisection bracket."""
+    lead = 0 if instance_ndim is None else eq.dim() - instance_ndim
+    dims = tuple(range(lead, eq.dim()))
+    return (
+        torch.amax(eq, dim=dims, keepdim=True)
+        + torch.sqrt(torch.amax(varq, dim=dims, keepdim=True))
+        + 1.0
+    )[..., 0]
+
+
 def optimal_z(
     pi: Tensor,
     eq: Tensor,
@@ -57,13 +77,7 @@ def optimal_z(
     ``k_i == 1`` files (``sum_j pi_ij`` within :data:`K1_TOL` of 1) get the
     bisection floor.
     """
-    lead = 0 if instance_ndim is None else eq.dim() - instance_ndim
-    dims = tuple(range(lead, eq.dim()))
-    scale = (
-        torch.amax(eq, dim=dims, keepdim=True)
-        + torch.sqrt(torch.amax(varq, dim=dims, keepdim=True))
-        + 1.0
-    )[..., 0]
+    scale = _instance_scale(eq, varq, instance_ndim)
     batch = pi.shape[:-1]
     floor = torch.full(batch, -64.0, dtype=pi.dtype, device=pi.device) * scale
     lo = floor
@@ -102,35 +116,125 @@ def mean_latency_bound(pi: Tensor, lam: Tensor, moments: ServiceMoments) -> Tens
     return torch.sum(lam * t, dim=-1) / torch.sum(lam, dim=-1)
 
 
+
+
+INVPHI = 0.6180339887498949  # 1/phi, the golden-section ratio
+
+
+def tail_probability_bounds(
+    pi: Tensor,
+    eq: Tensor,
+    varq: Tensor,
+    deadline,
+    *,
+    iters: int = 54,
+    instance_ndim: int | None = None,
+) -> Tensor:
+    """Upper bound on the per-file tail probability P[T_i > d_i].
+
+    For any z < d, ``T_i <= z + sum_{j in A_i} (Q_j - z)^+`` and Markov on
+    ``(T_i - z)^+`` give ``P[T_i > d] <= N_i(z) / (d - z)`` with
+    ``N_i(z) = sum_j (pi_ij/2) [(E[Q_j] - z) + sqrt((E[Q_j]-z)^2 +
+    Var[Q_j])]``, the Eq.-(5) body. The ratio is quasiconvex in z; its
+    minimizing z is found by golden-section search (no gradient flows
+    through it: the envelope theorem), and the value at that z is returned.
+
+    ``pi`` (..., r, m), ``eq``/``varq`` (..., 1, m) or (..., r, m),
+    ``deadline`` (..., r) -> (..., r). The bracket's scale is one max over
+    each instance's ``eq``/``varq`` (the trailing ``instance_ndim`` axes,
+    leading axes a batch, as the reference's ``vmap`` gives it; ``None``:
+    the whole arrays, one instance). Values
+    above 1 are vacuous; callers clip where they report.
+    """
+    deadline = torch.as_tensor(deadline, dtype=pi.dtype, device=pi.device)
+    half_pi = 0.5 * pi
+
+    def excess(z: Tensor) -> Tensor:
+        x = eq - z[..., None]
+        return torch.sum(half_pi * (x + torch.sqrt(x**2 + varq)), dim=-1)
+
+    scale = _instance_scale(eq, varq, instance_ndim)
+    lo = deadline - 64.0 * scale
+    hi = deadline - 1e-6 * scale
+    with torch.no_grad():
+        # the search runs ~13 small ops a step: both probes in one pass
+        # over (2, ..., r, m), sqrt(x^2 + Var) as hypot(x, sd)
+        sd = torch.sqrt(varq)
+        toward = torch.tensor([-INVPHI, INVPHI], dtype=pi.dtype, device=pi.device)
+        toward = toward.reshape((2,) + (1,) * lo.dim())
+        for _ in range(iters):
+            probes = torch.stack((hi, lo)) + toward * (hi - lo)  # (a, b)
+            x = eq - probes[..., None]
+            f = torch.sum(half_pi * (x + torch.hypot(x, sd)), dim=-1) / (deadline - probes)
+            shrink_hi = f[0] < f[1]  # the minimum is left of b
+            lo, hi = torch.where(shrink_hi, lo, probes[0]), torch.where(shrink_hi, probes[1], hi)
+    z = 0.5 * (lo + hi)
+    return excess(z) / (deadline - z)
+
+
+def _queues_and_fold(
+    pi: Tensor,
+    lam: Tensor,
+    moments: ServiceMoments,
+    weights: Tensor | None,
+    extra_rates: Tensor | None,
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """P-K moments at the true rates (plus ``extra_rates``), and the fold
+    weights ``sum_i w_i lam_i pi_ij`` with their total ``sum_i w_i lam_i``.
+    ``None`` for either option adds no op."""
+    node_rates = node_arrival_rates(pi, lam)
+    queue_rates = node_rates if extra_rates is None else node_rates + extra_rates
+    eq, varq = pk_sojourn_moments(queue_rates, moments)
+    if weights is None:
+        wlam, fold = lam, node_rates
+    else:
+        wlam = lam * weights
+        fold = node_arrival_rates(pi, wlam)
+    return eq, varq, fold, torch.sum(wlam, dim=-1)
+
+
 def shared_z_latency(
-    pi: Tensor, z: Tensor, lam: Tensor, moments: ServiceMoments
+    pi: Tensor,
+    z: Tensor,
+    lam: Tensor,
+    moments: ServiceMoments,
+    *,
+    weights: Tensor | None = None,
+    extra_rates: Tensor | None = None,
 ) -> Tensor:
     """JLCM relaxation, Eq. (9) latency part, with one z for all files:
 
       z + sum_j Lambda_j/(2 lam_hat) [ X_j + sqrt(X_j^2 + Y_j) ]
 
     with X_j = E[Q_j] - z, Y_j = Var[Q_j]. Batch-safe: pi (..., r, m),
-    z (...,), lam (..., r) -> (...,). The reference's ``weights`` and
-    ``extra_rates`` folds are not ported yet (ROADMAP.md queue A).
+    z (...,), lam (..., r) -> (...,).
+
+    ``weights`` (..., r) gives the differentiated weighted mean
+    ``sum_i (w_i lam_i / W) T_i``: the fold is re-weighted, the P-K moments
+    stay on the true rates. ``extra_rates`` (..., m) adds background
+    traffic to the queues without joining the fold. ``None`` adds no op.
     """
-    node_rates = node_arrival_rates(pi, lam)
-    eq, varq = pk_sojourn_moments(node_rates, moments)
-    lam_hat = torch.sum(lam, dim=-1)
+    eq, varq, fold, lam_hat = _queues_and_fold(pi, lam, moments, weights, extra_rates)
     x = eq - z[..., None]
-    body = node_rates / (2.0 * lam_hat[..., None]) * (x + torch.sqrt(x**2 + varq))
+    body = fold / (2.0 * lam_hat[..., None]) * (x + torch.sqrt(x**2 + varq))
     return z + torch.sum(body, dim=-1)
 
 
 def optimal_shared_z(
-    pi: Tensor, lam: Tensor, moments: ServiceMoments, *, iters: int = 80
+    pi: Tensor,
+    lam: Tensor,
+    moments: ServiceMoments,
+    *,
+    weights: Tensor | None = None,
+    extra_rates: Tensor | None = None,
+    iters: int = 80,
 ) -> Tensor:
     """Minimize Eq. (9) over the single auxiliary z (convex; bisection).
 
     Batch-safe: pi (..., r, m), lam (..., r) -> z of shape (...,), each
-    leading index its own instance.
+    leading index its own instance. ``weights`` and ``extra_rates`` as in
+    :func:`shared_z_latency`.
     """
-    node_rates = node_arrival_rates(pi, lam)
-    eq, varq = pk_sojourn_moments(node_rates, moments)
-    lam_hat = torch.sum(lam, dim=-1)
-    w = node_rates / lam_hat[..., None]  # plays the role of pi in the bound
+    eq, varq, fold, lam_hat = _queues_and_fold(pi, lam, moments, weights, extra_rates)
+    w = fold / lam_hat[..., None]  # plays the role of pi in the bound
     return optimal_z(w, eq, varq, iters=iters, instance_ndim=1)

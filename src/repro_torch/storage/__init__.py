@@ -7,6 +7,7 @@ from .cluster import (
     Cluster,
     GeoFabric,
     StorageNode,
+    geo_testbed,
     homogeneous_cluster,
     measured_fig6_moments,
     tahoe_testbed,

@@ -192,8 +192,7 @@ def measured_fig6_moments(*, device: str | torch.device = "cuda") -> ServiceMome
 
 # ---------------------------------------------------------------------------
 # Geo-aware client fabric: per-(client-site, node) network profiles.
-# This slice carries what the fleet simulator needs; C = 1 is the paper's
-# own single-client model.
+# C = 1 is the paper's own single-client model.
 # ---------------------------------------------------------------------------
 
 
@@ -253,6 +252,10 @@ class GeoFabric:
     def m(self) -> int:
         return self.cluster.m
 
+    @property
+    def site_names(self) -> tuple[str, ...]:
+        return tuple(cs.name for cs in self.sites)
+
     def _site_table(self, field: str) -> Tensor:
         """(C, m): each client site's per-storage-site ``field`` per node."""
         return self.cluster._tensor([
@@ -276,8 +279,58 @@ class GeoFabric:
         )
         return self.overheads(), self.bandwidths() / chunk
 
+    def moments(self, chunk_mb: float) -> ServiceMoments:
+        """Per-(client site, node) service moments, tensors shaped (C, m)."""
+        d, rate = self.service_params(chunk_mb)
+        return shifted_exponential_moments(d, rate)
+
+    def uniform_mix(self, r: int) -> np.ndarray:
+        """(r, C) client mix with every file read uniformly from all sites."""
+        return np.full((r, self.n_sites), 1.0 / self.n_sites)
+
+    def site_index(self, name: str) -> int:
+        return self.site_names.index(name)
+
     @classmethod
     def single_site(cls, cluster: Cluster, name: str = "ref") -> "GeoFabric":
         """The one-client-site fabric: the cluster's own model, exactly."""
         sites = sorted({nd.site for nd in cluster.nodes})
         return cls(cluster=cluster, sites=(ClientSite.reference(name, sites),))
+
+
+def geo_testbed(cluster: Cluster | None = None) -> GeoFabric:
+    """Four client sites on the 3-DC testbed (paper Fig. 5, plus a remote).
+
+    * ``NJ``: the reference profile, the paper's own client placement
+      (bitwise the base calibration).
+    * ``TX`` / ``CA``: clients co-located with the other two DCs; the
+      baked-in NJ-to-site RTT comes back out of the local site's overhead
+      and local bandwidth scales up, while the path back to NJ pays the WAN
+      RTT. CA keeps the paper's inversion (higher RTT, more bandwidth than
+      TX) from every vantage point.
+    * ``EU``: a remote client far from all three DCs.
+
+    The deltas are the reference's calibration (the paper publishes no
+    per-pair RTT matrix). ``cluster`` defaults to :func:`tahoe_testbed` on
+    the card.
+    """
+    cluster = tahoe_testbed() if cluster is None else cluster
+    sites = (
+        ClientSite.reference("NJ", ("NJ", "TX", "CA")),
+        ClientSite(
+            name="TX",
+            rtt_s={"NJ": 4.5, "TX": -5.5, "CA": 0.4},
+            bandwidth_scale={"NJ": 0.55, "TX": 2.6, "CA": 0.9},
+        ),
+        ClientSite(
+            name="CA",
+            rtt_s={"NJ": 1.4, "TX": 0.6, "CA": -1.8},
+            bandwidth_scale={"NJ": 0.75, "TX": 1.05, "CA": 1.7},
+        ),
+        ClientSite(
+            name="EU",
+            rtt_s={"NJ": 2.2, "TX": 3.5, "CA": 3.0},
+            bandwidth_scale={"NJ": 0.7, "TX": 0.75, "CA": 0.7},
+        ),
+    )
+    return GeoFabric(cluster=cluster, sites=sites)

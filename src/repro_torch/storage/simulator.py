@@ -130,6 +130,15 @@ class FleetResult(NamedTuple):
     def mean_latency(self) -> Tensor:
         return torch.mean(self.latency)
 
+    def per_site_mean(self, n_sites: int) -> Tensor:
+        """(C,) mean latency by request origin site; a site that originated
+        no request gets NaN, never a 0-count mean."""
+        site = self.site_id.reshape(-1)
+        tot = torch.zeros(n_sites, dtype=self.latency.dtype, device=site.device)
+        tot.index_add_(0, site, self.latency.reshape(-1))
+        cnt = torch.bincount(site, minlength=n_sites).to(tot.dtype)
+        return torch.where(cnt > 0, tot / torch.clamp_min(cnt, 1.0), torch.nan)
+
 
 def _on(x, device: torch.device, dtype=torch.float32) -> Tensor:
     """``x`` as a tensor on ``device``: host data is copied there, a tensor

@@ -240,35 +240,112 @@ def test_none_path_objectives_equal_latency_bound_functions(moments):
     )
 
 
+def _extras(r: int, seed: int = 7) -> dict:
+    """Numpy inputs of a tenant spec, a geo spec (3 sites) and a cache spec
+    for ``r`` files on M nodes."""
+    rng = np.random.default_rng(seed)
+    cid = rng.integers(0, 2, r)
+    cid[:2] = (0, 1)
+    scale = np.array([10.0, 120.0, 2000.0], np.float32)[:, None, None]
+    return dict(
+        spec=(cid, (2.0, 1.0), (60.0, None), (5.0, 0.0)),
+        hit=rng.uniform(0.0, 0.5, r).astype(np.float32),
+        site=rng.uniform(0.5, 2.0, (3, 3, M)).astype(np.float32) * scale,
+        mix=rng.dirichlet(np.ones(3), r).astype(np.float32),
+    )
+
+
+def _specs(extras: dict, pkg, moments_cls, tensor, **kw):
+    """The (ObjectiveSpec, GeoSpec, CacheSpec) of ``extras`` built by one
+    package (``kw`` carries the port's ``device``)."""
+    m1, m2, m3 = (tensor(x) for x in extras["site"])
+    return (
+        pkg.make_objective(*extras["spec"], **kw),
+        pkg.make_geo(moments_cls(1.0 / m1, m2, m3), extras["mix"]),
+        pkg.make_cache_spec(extras["hit"], 3.0, 1.5, **kw),
+    )
+
+
 @pytest.mark.parametrize(
     "call",
     [
-        lambda pi, lam, m: composed_latency(pi, torch.tensor(0.0), lam, m, "spec"),
-        lambda pi, lam, m: refresh_shared_z(pi, lam, m, None, geo="geo"),
-        lambda pi, lam, m: apply_cache_thinning(lam, "cache"),
-        lambda pi, lam, m: compose_file_bounds(lam, pi, None, None, lam, None, "c"),
+        lambda mod, pi, lam, m, x: mod.composed_latency(pi, x["z"], lam, m, x["spec"]),
+        lambda mod, pi, lam, m, x: mod.refresh_shared_z(pi, lam, m, None, geo=x["geo"]),
+        lambda mod, pi, lam, m, x: mod.apply_cache_thinning(lam, x["cache"]),
+        lambda mod, pi, lam, m, x: mod.compose_file_bounds(
+            lam, pi, x["eq"], x["varq"], lam, x["spec"], x["cache"]),
     ],
 )
 def test_unported_objective_parts_raise(call, moments):
-    _, port_m = moments
+    """The objective layer's spec, geo and cache arguments, which raised
+    before the layer was ported, now give the reference's values."""
+    import repro.core as ref_core
+    import repro.core.objectives as ref_obj
+    import repro_torch.core as port_core
+    import repro_torch.core.objectives as obj
+
+    ref_m, port_m = moments
     pi, _, lam = _feasible_pi(6, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(torch.from_numpy(pi), torch.from_numpy(lam), port_m)
+    extras = _extras(4)
+    rspec, rgeo, rcache = _specs(extras, ref_core, ref_q.ServiceMoments, jnp.asarray)
+    pspec, pgeo, pcache = _specs(extras, port_core, q.ServiceMoments,
+                                 torch.from_numpy, device="cpu")
+    rates = lam @ pi
+    eq, varq = ref_q.pk_sojourn_moments(jnp.asarray(rates), ref_m)
+    ref = call(ref_obj, jnp.asarray(pi), jnp.asarray(lam), ref_m, dict(
+        z=jnp.asarray(20.0), spec=rspec, geo=rgeo, cache=rcache,
+        eq=eq[None], varq=varq[None]))
+    port = call(obj, torch.from_numpy(pi), torch.from_numpy(lam), port_m, dict(
+        z=torch.tensor(20.0), spec=pspec, geo=pgeo, cache=pcache,
+        eq=torch.from_numpy(np.array(eq))[None], varq=torch.from_numpy(np.array(varq))[None]))
+    _close(port, ref)
+
+
+def _field_value(field: str, ref: bool):
+    """A value of each optional problem field for a 2-file problem, built by
+    the reference (``ref``) or the port from the same numbers."""
+    import repro.core as ref_core
+    import repro_torch.core as port_core
+
+    pkg, kw = (ref_core, {}) if ref else (port_core, {"device": "cpu"})
+    tensor = jnp.asarray if ref else torch.from_numpy
+    if field == "cost_weight":
+        return tensor(np.array([3.0, 1.0], np.float32))
+    if field == "background":
+        return tensor(np.full(M, 0.002, np.float32))
+    if field == "cache":
+        return pkg.make_cache_spec([0.3, 0.1], 2.0, 0.5, **kw)
+    if field == "objective":
+        return pkg.make_objective([0, 1], (3.0, 1.0), (80.0, None), **kw)
+    mom = (ref_testbed() if ref else tahoe_testbed(device="cpu")).moments(33.3)
+    site = type(mom)(*(tensor(np.stack([np.array(x), 1.3 * np.array(x)])) for x in mom))
+    return pkg.make_geo(site, np.array([[0.7, 0.3], [0.2, 0.8]]))
 
 
 @pytest.mark.parametrize(
     "field", ["objective", "geo", "cache", "cost_weight", "background"]
 )
 def test_unported_problem_fields_raise(field, moments):
-    _, port_m = moments
+    """Each optional problem field, which raised before it was ported, now
+    solves to the reference's plan in merged and debug modes (identical n
+    and placement, objective within rtol 1e-3)."""
+    import repro.core as ref_core
+
+    ref_m, port_m = moments
+    ref_prob = ref_core.JLCMProblem(
+        lam=jnp.full((2,), 0.01), k=jnp.full((2,), 4.0), moments=ref_m,
+        cost=ref_testbed().cost, theta=1.0,
+    )._replace(**{field: _field_value(field, ref=True)})
     prob = JLCMProblem(
         lam=torch.full((2,), 0.01), k=torch.full((2,), 4.0), moments=port_m,
-        cost=torch.ones(M), theta=1.0,
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(prob._replace(**{field: torch.ones(2)}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(prob, mode="debug")
+        cost=tahoe_testbed(device="cpu").cost, theta=1.0,
+    )._replace(**{field: _field_value(field, ref=False)})
+    for mode in ("merged", "debug"):
+        want = ref_core.solve(ref_prob, mode=mode, max_iters=60)
+        got = solve(prob, mode=mode, max_iters=60)
+        np.testing.assert_array_equal(got.n.numpy(), np.asarray(want.n))
+        np.testing.assert_array_equal(got.placement.numpy(), np.asarray(want.placement))
+        np.testing.assert_allclose(float(got.objective), float(want.objective), rtol=1e-3)
 
 
 # ---------------------------------------------------------------- scheduling

@@ -177,9 +177,16 @@ def test_stack_problems_errors_match_reference():
         stack_problems([p_a, p_b])
     with pytest.raises(ValueError, match="at least one"):
         stack_problems([])
-    for field in ("objective", "geo", "cache"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            stack_problems([p_a, p_a._replace(**{field: object()})])
+    # a batch mixing None with a value in an optional field, or its shapes
+    for field, value in (("cost_weight", np.ones(8, np.float32)),
+                         ("background", np.zeros(M, np.float32))):
+        with pytest.raises(ValueError, match=field):
+            ref_core.stack_problems([r_a, r_a._replace(**{field: jnp.asarray(value)})])
+        with pytest.raises(ValueError, match=field):
+            stack_problems([p_a, p_a._replace(**{field: torch.from_numpy(value)})])
+        with pytest.raises(ValueError, match=field):
+            stack_problems([p_a._replace(**{field: torch.from_numpy(value[:-1])}),
+                            p_a._replace(**{field: torch.from_numpy(value)})])
 
 
 # --------------------------------------------------------------- baselines
