@@ -130,6 +130,42 @@ Phases, each raising on failure:
        the sites: EU's mean above NJ's, the mean within the geo bound x
        1.05.
    Phase 7's scans are held to the plain twin bitwise like phases 3-4b.
+8. The closed loop's simulator, every scan on B1 (phase 8 wall printed):
+   8a. The Che model over phase 4's catalog (file bytes k_i x the chunk
+       size, a tenth of their sum cached, hit latency 0.5 s, 0.02 $/MB hot,
+       the cache scenarios' values): TTLs and hit fractions; the hot tier
+       must lower phase 4's plan's bound; a cache-aware re-solve through
+       ``make_cache_spec``; ``benchmarks/cache_tier.py``'s frontier (7
+       capacities as one ``solve_batch`` of 300 iterations) with its two
+       asserts.
+   8b. ``simulate_segments``, 8 x 100 000 requests on the cache-aware plan:
+       node 0 down in segments 2-4 with repair rows (``build_repair_flow``,
+       ``augment_plan``; rates paced to rebuild each lost chunk once over the
+       outage, TTL 0), the Che TTLs, a hot-tier outage in segment 6. Node 0
+       has no busy time and no observation while down; every non-hit read
+       is served by k_i available nodes and every hit by none (B1 gives
+       -inf there), hits return at the hit latency, none in the outage or
+       on a repair row; t0 rises; a host loop of ``simulate_segment`` on the
+       same draws is bitwise the schedule; TTLs all zero are bitwise the
+       cache-free run.
+   8c. 8 candidates (1 - a) pi + a uniform-over-support(pi), a = 0, 1/7,
+       ..., 1, x 4 draws from the carry after segment 4: ONE B1 launch at
+       (32, 100 000, 12); with one draw each candidate's stream and counts
+       are bitwise ``run_segment_raw``'s, its power sums within rtol 1e-5.
+   8d. ``simulate_geo_segments`` on 7c's plan, 8 x 100 000 requests, the
+       client mix rotating one site a segment: per-(site, node) counts sum
+       to the served masks; ``fleet_scale.py``'s rider 3 (one
+       ``simulate_geo_segment``'s mean within 25 % of 7c's fleet mean).
+   8e. ``simulate_fleet(stream=True, n_chunks=8)`` with the cache, 64 seeds
+       x 8 x 100 000 requests: hit count, sketch p99 and windowed p99;
+       ``fleet_scale.py``'s rider 2 at ``n_chunks = 1`` on the materialized
+       run's draws (exact count, mean within 1e-4, exact p99 <= sketch p99
+       <= exact x growth); the cached mean below the uncached; seed 0's hits
+       and final expiry on the card equal a host walk of the TTL cache. B1
+       is timed on a chunk's inputs with carried state, and the sort-based
+       cache on a chunk.
+   Phase 8's scans, each with its own carried ``dep0`` and ``busy0``, are
+   stacked and held to the plain twin bitwise in one walk.
 
 The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
 the card could take for the work: each input read once and each output
@@ -144,12 +180,13 @@ The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 7 (4b included) every launch count is set to 0 just before
+In phases 3 to 8 (4b included) every launch count is set to 0 just before
 each main-path call (simulator, encode, decode, prefill) and read just after;
 each call must have launched its kernel. Every kernel call those paths
 make is recorded, and its output is held against the plain twin on the
-same inputs: bitwise for B1 to B3 (B1's busy within rtol 1e-6, as in
-phase 2), within atol 2e-5 for B4. Each kernel and its plain twin are
+same inputs, B1's with the carried state the call passed: bitwise for B1
+to B3 (latency and dep; B1's busy within rtol 1e-6, as in phase 2), within
+atol 2e-5 for B4. Each kernel and its plain twin are
 timed with CUDA events on the main path's own inputs (B2 and B3's records
 on the largest codec group's).
 
@@ -184,6 +221,7 @@ from repro_torch.core import (  # noqa: E402
     empirical_objective_device,
     evaluate_pi,
     exponential_moments,
+    feasible_uniform,
     geo_problem,
     make_objective,
     materialize,
@@ -219,8 +257,12 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.storage import (  # noqa: E402
     DEFAULT_SKETCH,
+    CacheModel,
     CodecPlan,
     GeoFabric,
+    SimDraws,
+    augment_plan,
+    build_repair_flow,
     decode_batch,
     encode_batch,
     geo_testbed,
@@ -228,12 +270,19 @@ from repro_torch.storage import (  # noqa: E402
     lost_chunk_inventory,
     measured_fig6_moments,
     pad_and_split,
+    run_segment_batch,
+    run_segment_raw,
     simulate,
     simulate_fleet,
+    simulate_geo_segment,
+    simulate_geo_segments,
+    simulate_segment,
+    simulate_segments,
     simulator,
     stream_mean,
     stream_quantile,
     tahoe_testbed,
+    ttl_cache_scan,
 )
 
 FLEET_SEEDS, FLEET_REQUESTS, NODES = 256, 100_000, 12
@@ -285,6 +334,24 @@ TENANT_TAIL_WEIGHT, TENANT_REQUESTS, TENANT_MAX_ITERS = 10.0, 60_000, 400
 GEO_LAM, GEO_MIX = (0.036, 0.028, 0.016, 0.012), (0.4, 0.25, 0.25, 0.1)
 PLAN_K = (4.0, 4.0, 6.0, 6.0)  # the 4-file catalogs of 7b and 7c
 GEO_ANCHORED = dict(NJ=(0.9, 0.04, 0.03, 0.03), TX=(0.04, 0.9, 0.03, 0.03))
+# phase 8: the closed loop's simulator on phase 4's catalog. The hot tier
+# caches a tenth of the catalog's bytes (file bytes k_i x its chunk size) at
+# the cache scenarios' hit latency and hot price (src/repro/scenarios/
+# library.py, cache-warmup); the frontier is benchmarks/cache_tier.py's at
+# cache-warmup's constants (library.py's CACHE_LAM, spec.py's DEFAULT_K,
+# 12.5 MB chunks, theta = 4, its CAPACITIES_MB, 300 iterations)
+CACHE_MB, CACHE_SHARE, CACHE_HIT_LATENCY, CACHE_HOT_PRICE = float(2**20), 0.1, 0.5, 0.02
+# the cache-aware re-solve stops at eps 3e-4, not fig8's 0.01: at 0.01 it
+# stops after a few iterations with the TX nodes at utilisation ~0.93, which
+# node 0's failure in 8b pushes past capacity
+CACHE_SOLVE_KW = dict(eps=3e-4, max_iters=300)
+FRONTIER_LAM, FRONTIER_K = (0.09, 0.07, 0.04, 0.03), (4.0, 4.0, 6.0, 6.0)
+FRONTIER_CHUNK_MB, FRONTIER_THETA, FRONTIER_MAX_ITERS = 12.5, 4.0, 300
+FRONTIER_CAPACITIES_MB = (0.0, 25.0, 50.0, 100.0, 150.0, 200.0, 250.0)
+SEGMENTS, SEGMENT_REQUESTS = 8, 100_000  # 8b's schedule and 8d's geo segments
+SEG_DOWN, SEG_OUTAGE = (2, 5), 6  # node 0 down in segments 2-4; the hot tier out in 6
+CAND_AFTER, CANDIDATES, CAND_DRAWS = 4, 8, 4  # 8c: rollouts from the carry after segment 4
+STREAM_FLEET = dict(n_seeds=64, n_chunks=8, n_requests=100_000)  # 8e
 PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
@@ -467,22 +534,33 @@ def counted(label: str, fn, kernel: str = "fcfs_scan"):
     return out, launches
 
 
+def scan_inputs(args, kwargs) -> tuple:
+    """A recorded ``fcfs_scan`` call's five inputs: its carried ``dep0`` and
+    ``busy0`` as the call passed them, else the idle queues it defaulted to."""
+    t, masks, service = args[:3]
+    carries = list(args[3:5]) + [None] * (5 - len(args))
+    idle = lambda: torch.zeros(t.shape[:-1] + service.shape[-1:], device=t.device)
+    dep0 = kwargs.get("dep0", carries[0])
+    busy0 = kwargs.get("busy0", carries[1])
+    return (t, masks, service, idle() if dep0 is None else dep0,
+            idle() if busy0 is None else busy0)
+
+
 def hold_against_plain(calls, label: str, time_it: bool = False) -> dict:
-    """Each recorded scan's output against the plain twin on its inputs;
-    with ``time_it``, also time kernel and plain twin on the last one."""
+    """Each recorded scan's output against the plain twin on its inputs, its
+    own carried state included; with ``time_it``, also time kernel and plain
+    twin on the last one."""
     record = dict(max_abs_err=0.0)
-    for args, _, got in calls:
-        t, masks, service = args[:3]
-        zeros = torch.zeros(t.shape[:-1] + service.shape[-1:], device=t.device)
-        plain_ms, want = cuda_ms(
-            lambda: fcfs_scan_plain(t, masks, service, zeros, zeros), reps=1)
+    for args, kwargs, got in calls:
+        inputs = scan_inputs(args, kwargs)
+        service = inputs[2]
+        plain_ms, want = cuda_ms(lambda: fcfs_scan_plain(*inputs), reps=1)
         err = check_parity(got, want, f"{label} {tuple(service.shape)}")
         record["max_abs_err"] = max(record["max_abs_err"], err)
         print(f"[{label}] main-path scan {tuple(service.shape)}: kernel == plain "
               f"twin, busy max_abs_err {err}, plain twin {plain_ms:.1f} ms")
     if time_it:
-        kernel_ms, _ = cuda_ms(
-            lambda: fcfs_scan_cuda(t, masks, service, zeros, zeros), reps=5)
+        kernel_ms, _ = cuda_ms(lambda: fcfs_scan_cuda(*inputs), reps=5)
         record.update(ms=kernel_ms, plain_ms=plain_ms, **bound(*service.shape))
     return record
 
@@ -616,7 +694,8 @@ def load_probes():
 
 
 def phase_build():
-    """Build the three sources and the probes in parallel; return the probes."""
+    """Build the three sources and the probes in parallel; return the probes
+    and the card's name and power limit as nvidia-smi gives them."""
     def timed(build):
         t0 = time.perf_counter()
         out = build()
@@ -634,7 +713,7 @@ def phase_build():
     print(f"[1] flash attention kernel built/loaded in {fa_s:.3f} s")
     print(f"[1] probes built/loaded in {probe_s:.3f} s")
     print(card)
-    return probes
+    return probes, card
 
 
 def launched(err: int) -> None:
@@ -1187,17 +1266,19 @@ def fig10_checks(res, ks, n_files, failed: list) -> None:
 
 def hold_stacked(calls, phase: str, name: str, dev) -> float:
     """Main-path scans that share N and m (batched or not), joined on the
-    seed axis and held bitwise against one run of the plain twin, whose
-    time is a loop over N whatever the seeds; returns the largest busy
-    |difference|."""
+    seed axis, each with its own carried ``dep0`` and ``busy0``, and held
+    bitwise against one run of the plain twin, whose time is a loop over N
+    whatever the seeds; returns the largest busy |difference|."""
     n, m = calls[0][0][2].shape[-2:]
     join = lambda xs, *event: torch.cat([x.reshape((-1,) + event) for x in xs])
-    t, masks, service = (join([c[0][j] for c in calls], *event)
-                         for j, event in enumerate([(n,), (n, m), (n, m)]))
+    inputs = [scan_inputs(args, kwargs) for args, kwargs, _ in calls]
+    t, masks, service, dep0, busy0 = (
+        join([x[j] for x in inputs], *event)
+        for j, event in enumerate([(n,), (n, m), (n, m), (m,), (m,)]))
+    del inputs
     got = tuple(join([c[2][j] for c in calls], *event)
                 for j, event in enumerate([(n,), (m,), (m,)]))
-    zeros = torch.zeros(t.shape[:-1] + service.shape[-1:], device=dev)
-    plain_ms, want = cuda_ms(lambda: fcfs_scan_plain(t, masks, service, zeros, zeros), reps=1)
+    plain_ms, want = cuda_ms(lambda: fcfs_scan_plain(t, masks, service, dep0, busy0), reps=1)
     err = check_parity(got, want, f"{phase} {name} {tuple(service.shape)}")
     print(f"[{phase}] {name}: {len(calls)} main-path scans stacked {tuple(service.shape)}: kernel == plain twin, busy max_abs_err {err}, "
           f"plain twin {plain_ms:.1f} ms")
@@ -1209,9 +1290,9 @@ def hold_figure_scans(scans: dict, dev, probes) -> float:
     against one run of the plain twin, bitwise; then B1 timed on fig10's
     one-seed scan beside its byte bound and the serial chain alone."""
     worst = max(hold_stacked(calls, "4b", fig, dev) for fig, calls in scans.items())
-    t, masks, service = (x[None].contiguous() for x in scans["fig10"][0][0][:3])
-    zeros = torch.zeros((1, service.shape[-1]), device=dev)
-    scan = lambda: fcfs_scan_cuda(t, masks, service, zeros, zeros)
+    t, masks, service, dep0, busy0 = (
+        x[None].contiguous() for x in scan_inputs(*scans["fig10"][0][:2]))
+    scan = lambda: fcfs_scan_cuda(t, masks, service, dep0, busy0)
     scan()  # warm
     kernel_ms, _ = cuda_ms(scan, reps=20)
     b = bound(*service.shape)
@@ -1556,9 +1637,9 @@ def phase_hierarchical(dev) -> tuple[int, list, dict]:
         failed.append(f"7a fleet mean {mean} against bound {tight} x 1.05")
     if not share_err <= 0.01:
         failed.append(f"7a marks' cluster shares off the rates by {share_err}")
-    t, masks, service = calls[-1][0][:3]
-    zeros = torch.zeros(t.shape[:-1] + service.shape[-1:], device=dev)
-    kernel_ms, _ = cuda_ms(lambda: fcfs_scan_cuda(t, masks, service, zeros, zeros), reps=5)
+    inputs = scan_inputs(*calls[-1][:2])
+    service = inputs[2]
+    kernel_ms, _ = cuda_ms(lambda: fcfs_scan_cuda(*inputs), reps=5)
     record = dict(ms=kernel_ms, **bound(*service.shape))
     print(f"[7a] B1 at {tuple(service.shape)}: kernel {kernel_ms:.4f} ms, bound "
           f"{record['bound_ms']:.4f} ms ({record['bound_gb']:.3f} GB); phase wall "
@@ -1631,11 +1712,12 @@ def phase_tenant(dev) -> tuple[int, float]:
     return launches, worst
 
 
-def phase_geo(dev) -> tuple[int, list]:
+def phase_geo(dev) -> tuple[int, list, torch.Tensor, float]:
     """7c: the geo fabric. The C == 1 collapse solves bitwise as the plain
     problem; placement follows the client mix; fleet_scale.py's files
     planned as a geo problem and simulated across the four client sites.
-    Returns B1's launches and the fleet's recorded scans."""
+    Returns B1's launches, the fleet's recorded scans, the plan and the
+    fleet's mean."""
     t_phase = time.perf_counter()
     failed: list[str] = []
     cl = tahoe_testbed(device=dev)
@@ -1682,7 +1764,428 @@ def phase_geo(dev) -> tuple[int, list]:
           f"(its scan is held with 7a's)")
     if failed:
         raise AssertionError("phase 7c failed: " + "; ".join(failed))
-    return launches, calls
+    return launches, calls, sol.pi, mean
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the closed loop's simulator (cache tier, segments with failures
+# and repair rows, candidate rollouts, geo segments, the streaming fleet).
+# ---------------------------------------------------------------------------
+
+
+def numpy_ttl_walk(expiry, t, fid, ttl):
+    """The TTL-with-reset cache walked one request at a time on the host, in
+    float32, as the reference's scan walks it: ``(new expiry, hits)``."""
+    expiry = expiry.copy()
+    hits = np.zeros(t.shape[0], bool)
+    for i, (ti, f) in enumerate(zip(t, fid)):
+        hits[i] = ti < expiry[f] and ttl[f] > 0
+        expiry[f] = ti + ttl[f]
+    return expiry, hits
+
+
+def catalog_inputs(dev):
+    """Phase 4's §V.B catalog: lam and k on the card, host copies, chunk
+    sizes and the rate-weighted chunk size its fleets use."""
+    lam, ks, chunk = paper_catalog(1000, device=dev)
+    lam_np, ks_np = lam.cpu().numpy(), ks.cpu().numpy()
+    return lam, ks, lam_np, ks_np, chunk, float(np.average(chunk, weights=lam_np))
+
+
+def phase_cache_model(dev, sol, failed: list) -> tuple:
+    """8a: the Che model over the catalog (a tenth of its bytes cached), a
+    cache-aware re-solve through make_cache_spec, and cache_tier.py's
+    frontier as one solve_batch. Returns the model, its TTLs and the plan."""
+    cl = tahoe_testbed(device=dev)
+    lam, ks, lam_np, ks_np, chunk, eff = catalog_inputs(dev)
+    lam64 = lam_np.astype(np.float64)
+    file_bytes = ks_np.astype(np.float64) * chunk * CACHE_MB  # k_i x the chunk size
+    model = CacheModel(file_bytes=file_bytes, capacity_bytes=CACHE_SHARE * file_bytes.sum(),
+                       hit_latency=CACHE_HIT_LATENCY, hot_price_per_mb=CACHE_HOT_PRICE)
+    ttl = model.ttl(lam64)
+    hit = model.hit_rates(lam64)
+    print(f"[8a] Che model over {len(lam_np)} files, capacity {model.capacity_bytes / 1e9:.3f} GB "
+          f"(a tenth of {file_bytes.sum() / 1e9:.3f} GB): TTLs {np.unique(ttl).tolist()} s, hit "
+          f"fractions {hit.min():.5f}..{hit.max():.5f} (rate-weighted "
+          f"{np.average(hit, weights=lam64):.5f}), expected hot bytes / capacity "
+          f"{model.expected_hot_bytes(lam64) / model.capacity_bytes:.6f}, hot cost "
+          f"{model.hot_cost():.2f}")
+    prob = JLCMProblem(lam=lam, k=ks, moments=cl.moments(eff), cost=cl.cost, theta=2.0,
+                       cache=model.spec(lam64, device=dev))
+    wall, aware = best_wall(lambda: solve(prob, **CACHE_SOLVE_KW), reps=1)
+    print(f"[8a] cache-aware re-solve: {int(aware.iterations)} iterations in {wall:.3f} s, "
+          f"latency_tight {float(aware.latency_tight):.4f} s (cache-free plan "
+          f"{float(sol.latency_tight):.4f} s), cost {float(aware.cost):.2f} (hot "
+          f"{model.hot_cost():.2f}; cache-free {float(sol.cost):.2f}), mean n_i "
+          f"{float(aware.n.float().mean()):.3f}")
+    thinned = float(evaluate_pi(prob, sol.pi).latency_tight)
+    print(f"[8a] phase 4's plan under the hot tier: bound {thinned:.4f} s, against "
+          f"{float(sol.latency_tight):.4f} s without it")
+    if not thinned < float(sol.latency_tight):
+        failed.append("8a: the hot tier does not lower phase 4's plan's bound")
+
+    # benchmarks/cache_tier.py's frontier: one batched cache-aware solve
+    flam, fk = np.asarray(FRONTIER_LAM, np.float64), np.asarray(FRONTIER_K)
+    fbytes = fk * FRONTIER_CHUNK_MB * CACHE_MB
+    models = [CacheModel(file_bytes=fbytes, capacity_bytes=cap * CACHE_MB,
+                         hit_latency=CACHE_HIT_LATENCY, hot_price_per_mb=CACHE_HOT_PRICE)
+              for cap in FRONTIER_CAPACITIES_MB]
+    probs = [JLCMProblem(lam=on_card(flam, dev), k=on_card(fk, dev),
+                         moments=cl.moments(FRONTIER_CHUNK_MB), cost=cl.cost,
+                         theta=FRONTIER_THETA, cache=cm.spec(flam, device=dev)) for cm in models]
+    wall, sols = best_wall(lambda: solve_batch(probs, max_iters=FRONTIER_MAX_ITERS), reps=1)
+    cost_v = cl.cost.cpu().numpy()
+    bounds = sols.latency_tight.tolist()
+    warm = [float(((sols.pi[i].cpu().numpy() > 1e-3) * cost_v).sum()) for i in range(len(models))]
+    for cap, cm, b, w in zip(FRONTIER_CAPACITIES_MB, models, bounds, warm):
+        print(f"[8a] frontier {cap:6.1f} MB: hit {np.average(cm.hit_rates(flam), weights=flam):.4f}"
+              f", bound {b:.3f} s, warm cost {w:.1f}, hot cost {cm.hot_cost():.2f}, total "
+              f"{w + cm.hot_cost():.2f}")
+    print(f"[8a] frontier solve_batch of {len(models)}: iterations {sols.iterations.tolist()}, "
+          f"wall {wall:.3f} s")
+    catalog_mb = float(fbytes.sum() / CACHE_MB)
+    warms = [w for w, cap in zip(warm, FRONTIER_CAPACITIES_MB) if cap < catalog_mb]
+    if not all(b2 <= b1 + 1e-6 for b1, b2 in zip(bounds, bounds[1:])):
+        failed.append(f"8a frontier: the bound does not fall with capacity {bounds}")
+    if not all(w2 <= w1 + 1e-6 for w1, w2 in zip(warms, warms[1:])):
+        failed.append(f"8a frontier: the warm support widens with capacity {warms}")
+    return model, ttl, aware
+
+
+def phase_segments(dev, aware, ttl, failed: list) -> tuple:
+    """8b: the failure schedule on the cache-aware plan (node 0 down in
+    segments SEG_DOWN with its repair rows on, paced to rebuild each lost
+    chunk once over the outage; a hot-tier outage in SEG_OUTAGE), its
+    host-loop twin and the zero-TTL / cache-free pair."""
+    cl = tahoe_testbed(device=dev)
+    lam, ks, lam_np, ks_np, chunk, eff = catalog_inputs(dev)
+    r, n_seg, n = len(lam_np), SEGMENTS, SEGMENT_REQUESTS
+    down = slice(*SEG_DOWN)
+    avail_seq = np.ones((n_seg, NODES), bool)
+    avail_seq[down, 0] = False
+    # the repair pacer rebuilds each of node 0's chunks once over the outage
+    placement = aware.placement.cpu().numpy()
+    lost = int(lost_chunk_inventory(placement, ~avail_seq[SEG_DOWN[0]]).sum())
+    repair_rate = lost / ((SEG_DOWN[1] - SEG_DOWN[0]) * n / float(lam_np.sum()))
+    flow = build_repair_flow(placement, ks_np, avail_seq[SEG_DOWN[0]], repair_rate)
+    pi_aug, lam_aug = augment_plan(aware.pi.cpu().numpy(), lam_np, flow)
+    rate_scale = np.ones((n_seg, 2 * r), np.float32)
+    rate_scale[:, r:] = 0.0
+    rate_scale[down, r:] = 1.0
+    ttl_seq = np.tile(np.concatenate([ttl, np.zeros(r)]), (n_seg, 1)).astype(np.float32)
+    ttl_seq[SEG_OUTAGE] = 0.0
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lam_t, scale_t = on_card(lam_aug, dev), on_card(rate_scale, dev)
+    draws = [simulator._draw(gen, (lam_t * scale_t[s])[None], (n,), NODES, prio=True)
+             for s in range(n_seg)]
+    draws = SimDraws(*(torch.stack(xs) for xs in zip(*draws)))
+    kw = dict(avail_seq=avail_seq, rate_scale_seq=rate_scale, cache_hit_latency=CACHE_HIT_LATENCY,
+              draws=draws)
+    launches = {}
+    with recorded(simulator, "fcfs_scan") as calls:
+        wall, (res, launches["main"]) = best_wall(lambda: counted(
+            "8b simulate_segments", lambda: simulate_segments(
+                None, pi_aug, lam_aug, cl, eff, n, cache_ttl_seq=ttl_seq, **kw)), reps=1)
+    hit, fid, lat = res.hit, res.file_id, res.latency
+    k_req = torch.round(on_card(pi_aug, dev).sum(-1)).to(torch.int64)
+    sets_ok, empty_ok, down_ok = True, True, True
+    for s, (args, _, out) in enumerate(calls):
+        masks = args[1]
+        size = masks.sum(-1)
+        sets_ok &= bool(torch.where(hit[s], size == 0, size == k_req[fid[s]]).all())
+        empty_ok &= torch.equal(torch.isneginf(out[0]), hit[s])
+        down_ok &= not bool(masks[:, ~torch.as_tensor(avail_seq[s], device=dev)].any())
+    busy0 = res.node_busy[down, 0].tolist()
+    count0 = res.obs.count[down, 0].tolist()
+    hits_per_seg = hit.sum(-1).tolist()
+    repair_reads = (fid >= r).sum(-1).tolist()
+    repair_hits = int((hit & (fid >= r)).sum())
+    deg = res.degraded.float().mean(-1).tolist()
+    print(f"[8b] simulate_segments, {n_seg} x {n} requests (node 0 down in segments "
+          f"{SEG_DOWN[0]}..{SEG_DOWN[1] - 1}, {lost} chunks lost, repair rows at "
+          f"{repair_rate:.4g} reads/s there, the hot "
+          f"tier out in segment {SEG_OUTAGE}): wall {wall:.3f} s "
+          f"({n_seg * n / wall:.4g} requests/s), fcfs launches {launches['main']}")
+    print(f"[8b] hits a segment {hits_per_seg}, repair reads {repair_reads} (hits among them "
+          f"{repair_hits}), degraded share {np.round(deg, 5).tolist()}, mean latency "
+          f"{np.round(lat.mean(-1).tolist(), 3).tolist()} s, t_end "
+          f"{np.round(res.t_end.tolist(), 1).tolist()}")
+    print(f"[8b] node 0 while down: busy {busy0}, observations {count0}; non-hit reads serve "
+          f"k_i nodes, none down: {sets_ok and down_ok}; B1 gave -inf exactly on the hits' "
+          f"empty sets: {empty_ok}")
+    if not (all(b == 0.0 for b in busy0) and all(c == 0 for c in count0)):
+        failed.append(f"8b: node 0 served while down (busy {busy0}, count {count0})")
+    if not (sets_ok and down_ok and empty_ok):
+        failed.append("8b: a service set is not k_i available nodes, or a hit was served")
+    if not bool((lat[hit] == CACHE_HIT_LATENCY).all()):
+        failed.append("8b: a hit did not return at the hit latency")
+    if hits_per_seg[SEG_OUTAGE] != 0 or repair_hits != 0:
+        failed.append(f"8b: hits in the outage segment or on repair rows {hits_per_seg}")
+    if not all(h > 0 for s, h in enumerate(hits_per_seg) if s != SEG_OUTAGE):
+        failed.append(f"8b: a segment with the hot tier up had no hit {hits_per_seg}")
+    if not bool((torch.diff(res.t_end) > 0).all()):
+        failed.append("8b: t0 does not rise across the segments")
+    if not all((d > 0) == (SEG_DOWN[0] <= s < SEG_DOWN[1]) for s, d in enumerate(deg)):
+        failed.append(f"8b: degraded reads outside the failure {deg}")
+
+    # the host loop of simulate_segment on the same draws, and the carry
+    # after segment 4 for the candidate rollouts
+    with recorded(simulator, "fcfs_scan") as loop_calls:
+        def host_loop():
+            carry, parts, kept = None, [], None
+            for s in range(n_seg):
+                part, carry = simulate_segment(
+                    None, pi_aug, lam_aug, cl, eff, n, avail=avail_seq[s],
+                    rate_scale=rate_scale[s], carry=carry, cache_ttl=ttl_seq[s],
+                    cache_hit_latency=CACHE_HIT_LATENCY, draws=draws.at(s))
+                parts.append(part)
+                if s == CAND_AFTER:
+                    kept = carry
+            return simulator._stack(parts), kept
+        (loop, carry), launches["host_loop"] = counted("8b simulate_segment loop", host_loop)
+        same = all(torch.equal(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(loop),
+                                                     torch.utils._pytree.tree_leaves(res)))
+        zero_ttl, launches["zero_ttl"] = counted("8b simulate_segments zero TTLs", lambda: (
+            simulate_segments(None, pi_aug, lam_aug, cl, eff, n,
+                              cache_ttl_seq=np.zeros_like(ttl_seq), **kw)))
+        free, launches["cache_free"] = counted("8b simulate_segments cache-free", lambda: (
+            simulate_segments(None, pi_aug, lam_aug, cl, eff, n, **kw)))
+    bitwise_free = free.hit is None and int(zero_ttl.hit.sum()) == 0 and all(
+        torch.equal(getattr(zero_ttl, f), getattr(free, f))
+        for f in ("latency", "arrival", "node_busy", "degraded", "t_end")) and all(
+        torch.equal(a, b) for a, b in zip(zero_ttl.obs, free.obs))
+    print(f"[8b] the host loop of simulate_segment is bitwise simulate_segments: {same}; TTLs "
+          f"all zero are bitwise the cache-free run: {bitwise_free} (cache-free mean "
+          f"{float(free.latency.mean()):.3f} s against {float(lat.mean()):.3f} s cached)")
+    if not same:
+        failed.append("8b: the host loop differs from simulate_segments")
+    if not bitwise_free:
+        failed.append("8b: TTLs all zero differ from the cache-free run")
+    sched = dict(pi_aug=pi_aug, lam_aug=lam_aug, avail_seq=avail_seq, rate_scale=rate_scale,
+                 ttl_seq=ttl_seq, eff=eff, carry=carry)
+    return launches, calls + loop_calls, sched
+
+
+def phase_candidates(dev, sched, failed: list) -> tuple:
+    """8c: CANDIDATES plans (1 - a) pi + a uniform-over-support(pi), each
+    rolled out over CAND_DRAWS draws from the carry after segment CAND_AFTER
+    as one B1 launch; with one draw each candidate's stream is
+    run_segment_raw's bitwise."""
+    cl = tahoe_testbed(device=dev)
+    s_next, n = CAND_AFTER + 1, SEGMENT_REQUESTS
+    pi = on_card(sched["pi_aug"], dev)
+    k = torch.round(pi.sum(-1))
+    uni = feasible_uniform(pi > 1e-6, k)
+    alphas = torch.linspace(0.0, 1.0, CANDIDATES, device=dev)[:, None, None]
+    stack = (1 - alphas) * pi + alphas * uni
+    d, rates = cl.service_params(sched["eff"])
+    lam_s = on_card(sched["lam_aug"] * sched["rate_scale"][s_next], dev)
+    avail = on_card(sched["avail_seq"][s_next], dev, torch.bool)
+    ttl = on_card(sched["ttl_seq"][s_next], dev)
+    carry = sched["carry"]
+    gen = torch.Generator(device=dev).manual_seed(83)
+    launches = {}
+    with recorded(simulator, "fcfs_scan") as calls:
+        wall, (roll, launches["rollout"]) = best_wall(lambda: counted(
+            "8c run_segment_batch", lambda: run_segment_batch(
+                carry, gen, stack, lam_s, d, rates, avail, n, ttl, CACHE_HIT_LATENCY,
+                n_draws=CAND_DRAWS)), reps=1)
+    shape = tuple(calls[-1][0][1].shape)
+    score = roll.latency.mean(dim=(1, 2))
+    print(f"[8c] {CANDIDATES} candidates x {CAND_DRAWS} draws x {n} requests from the carry after "
+          f"segment {CAND_AFTER}: B1 launched {launches['rollout']} time(s) at {shape}, wall "
+          f"{wall:.3f} s; mean latency by alpha {np.round(score.tolist(), 3).tolist()}, best "
+          f"alpha {float(alphas[int(torch.argmin(score))]):.4f}")
+    if launches["rollout"] != 1 or shape != (CANDIDATES * CAND_DRAWS, n, NODES):
+        failed.append(f"8c: the rollout took {launches['rollout']} launches at {shape}")
+    draws = simulator._draw(gen, lam_s[None], (1, n), NODES, prio=True)
+    with recorded(simulator, "fcfs_scan") as one_calls:
+        one, launches["one_draw"] = counted("8c run_segment_batch, one draw", lambda: (
+            run_segment_batch(carry, None, stack, lam_s, d, rates, avail, n, ttl,
+                              CACHE_HIT_LATENCY, draws=draws)))
+        differ, rel = set(), 0.0
+        for b in range(CANDIDATES):
+            (_, raw), nb = counted("8c run_segment_raw", lambda: run_segment_raw(
+                carry, None, stack[b], lam_s, d, rates, avail, n, ttl, CACHE_HIT_LATENCY,
+                draws=draws.at(0)))
+            launches["one_draw"] += nb
+            differ |= {f for f in ("latency", "degraded", "node_busy", "hit", "arrival")
+                       if not torch.equal(getattr(one, f)[b, 0], getattr(raw, f))}
+            if not torch.equal(one.obs.count[b, 0], raw.obs.count):
+                differ.add("count")
+            for f in ("s1", "s2", "s3"):
+                x, y = getattr(one.obs, f)[b, 0], getattr(raw.obs, f)
+                rel = max(rel, float(((x - y).abs() / y.abs().clamp_min(1e-30)).max()))
+    # the power sums reduce over N, and a batched reduction on the card may
+    # sum in another order: held at rtol 1e-5, as the tests hold the reference's
+    print(f"[8c] with one draw every candidate's stream (latency, degraded, busy, hits) and "
+          f"node counts equal run_segment_raw's bitwise: {not differ}; s1-s3 max rel diff "
+          f"{rel:.3g} (limit 1e-5)")
+    if differ or not rel <= 1e-5:
+        failed.append(f"8c: one-draw candidates differ from run_segment_raw in {differ}, "
+                      f"s1-s3 by {rel}")
+    return launches, calls + one_calls
+
+
+def phase_geo_segments(dev, geo_pi, fleet_mean: float, failed: list) -> tuple:
+    """8d: phase 7c's plan over SEGMENTS geo segments, the client mix
+    rotating one site a segment; per-(site, node) counts against the served
+    masks; fleet_scale.py's rider 3 against phase 7c's fleet mean."""
+    fabric = geo_testbed(tahoe_testbed(device=dev))
+    lam, mix = np.asarray(GEO_LAM, np.float32), np.asarray(GEO_MIX)
+    lam_seq = np.stack([np.roll(mix, s)[:, None] * lam[None, :] for s in range(SEGMENTS)])
+    gen = torch.Generator(device=dev).manual_seed(84)
+    launches = {}
+    with recorded(simulator, "fcfs_scan") as calls:
+        wall, (res, launches["segments"]) = best_wall(lambda: counted(
+            "8d simulate_geo_segments", lambda: simulate_geo_segments(
+                gen, geo_pi, lam_seq, fabric, PLAN_CHUNK_MB, SEGMENT_REQUESTS)), reps=1)
+    counts_ok = all(torch.equal(res.obs.count[s].sum(0), args[1].sum(0))
+                    for s, (args, _, _) in enumerate(calls))
+    site_share = res.obs.count.sum(-1).float()
+    site_share = (site_share / site_share.sum(-1, keepdim=True)).argmax(-1).tolist()
+    per_seg = [float(x) for x in res.latency.mean(-1)]
+    print(f"[8d] simulate_geo_segments, {SEGMENTS} x {SEGMENT_REQUESTS} requests on phase 7c's "
+          f"plan, the mix rotating one site a segment: wall {wall:.3f} s, fcfs launches "
+          f"{launches['segments']}; busiest client site by segment "
+          f"{[fabric.site_names[i] for i in site_share]}, mean latency "
+          f"{np.round(per_seg, 3).tolist()} s; per-(site, node) counts sum to the served "
+          f"masks: {counts_ok}")
+    if not counts_ok:
+        failed.append("8d: per-(site, node) counts do not sum to the served masks")
+    lam_cs = mix[:, None] * lam[None, :]
+    with recorded(simulator, "fcfs_scan") as one_calls:
+        (one, _), launches["one"] = counted("8d simulate_geo_segment", lambda: (
+            simulate_geo_segment(gen, geo_pi, lam_cs, fabric, PLAN_CHUNK_MB, SEGMENT_REQUESTS)))
+    one_mean = float(one.latency[SEGMENT_REQUESTS // 10:].mean())
+    print(f"[8d] fleet_scale.py rider 3: one simulate_geo_segment's mean {one_mean:.3f} s, "
+          f"phase 7c's fleet mean {fleet_mean:.3f} s ({abs(fleet_mean - one_mean) / one_mean:.4f}"
+          f" apart, limit 0.25)")
+    if not abs(fleet_mean - one_mean) / one_mean < 0.25:
+        failed.append(f"8d rider 3: fleet {fleet_mean} vs one segment {one_mean}")
+    return launches, calls + one_calls
+
+
+def phase_stream_fleet(dev, aware, ttl, limits: dict, failed: list) -> tuple:
+    """8e: the chunked streaming fleet with the cache on the cache-aware
+    plan; fleet_scale.py's rider 2 at n_chunks = 1; the cached mean below
+    the uncached; the card's cache against a host walk; B1 timed on a
+    chunk's inputs with carried state."""
+    cl = tahoe_testbed(device=dev)
+    fabric = GeoFabric.single_site(cl)
+    lam, ks, lam_np, ks_np, chunk, eff = catalog_inputs(dev)
+    s, w, n = STREAM_FLEET["n_seeds"], STREAM_FLEET["n_chunks"], STREAM_FLEET["n_requests"]
+    r = len(lam_np)
+    lam_cs = lam[None]
+    ttl_t = on_card(ttl, dev)
+    gen = torch.Generator(device=dev).manual_seed(85)
+    launches = {}
+    with recorded(simulator, "fcfs_scan") as chunk_calls:
+        chunk_wall, (chunked, launches["chunked"]) = best_wall(lambda: counted(
+            "8e simulate_fleet chunked", lambda: simulate_fleet(
+                gen, aware.pi, lam_cs, fabric, eff, n, s, stream=True, n_chunks=w,
+                cache_ttl=ttl_t, cache_hit_latency=CACHE_HIT_LATENCY)), reps=1)
+    warm = int(w * n * 0.1)
+    count = int(chunked.stream.count.sum())
+    hits = int(chunked.hit_count.sum())
+    p99, p99w = float(chunked.quantile(0.99)), float(chunked.p99_windowed())
+    print(f"[8e] chunked streaming fleet, {s} seeds x {w} chunks x {n} requests "
+          f"({s * w * n:.4g} reads, cache state {tuple(ttl_t.shape)} a seed): wall "
+          f"{chunk_wall:.3f} s ({s * w * n / chunk_wall:.4g} requests/s), fcfs launches "
+          f"{launches['chunked']}; post-warmup count {count}, hit_count {hits} "
+          f"({hits / count:.5f}), mean {float(chunked.mean_latency()):.4f} s, quantile(0.99) "
+          f"{p99:.4f} s, p99_windowed {p99w:.4f} s")
+    if count != s * (w * n - warm) or hits <= 0 or not (np.isfinite(p99) and np.isfinite(p99w)):
+        failed.append(f"8e chunked: count {count}, hits {hits}, p99 {p99}, windowed {p99w}")
+
+    # fleet_scale.py's rider 2 at n_chunks = 1, and test_fleet_cache_path's
+    # claim, on one set of draws
+    draws = simulator._draw(gen, lam_cs, (s, n), NODES)
+    with recorded(simulator, "fcfs_scan") as calls:
+        mat_wall, (mat, launches["materialized"]) = best_wall(lambda: counted(
+            "8e simulate_fleet", lambda: simulate_fleet(
+                None, aware.pi, lam_cs, fabric, eff, n, s, draws=draws)), reps=1)
+        str_wall, (st, launches["stream"]) = best_wall(lambda: counted(
+            "8e simulate_fleet stream", lambda: simulate_fleet(
+                None, aware.pi, lam_cs, fabric, eff, n, s, stream=True, draws=draws)), reps=1)
+        cached, launches["cached"] = counted("8e simulate_fleet cached", lambda: simulate_fleet(
+            None, aware.pi, lam_cs, fabric, eff, n, s, cache_ttl=ttl_t,
+            cache_hit_latency=CACHE_HIT_LATENCY, draws=draws))
+    lat = mat.latency.cpu().numpy()
+    mat_mean, str_mean = float(lat.mean()), float(st.mean_latency())
+    exact = float(np.quantile(lat, 0.99, method="inverted_cdf"))
+    sketch_p99 = float(st.quantile(0.99))
+    growth = st.sketch.growth
+    cached_mean = float(cached.mean_latency())
+    print(f"[8e] rider 2 at n_chunks = 1: count {int(st.stream.count.sum())} of {lat.size}, mean "
+          f"{str_mean:.6f} vs {mat_mean:.6f} s, p99 sketch {sketch_p99:.4f} in [exact "
+          f"{exact:.4f}, x growth {exact * growth:.4f}]; cached mean {cached_mean:.4f} s below "
+          f"uncached {mat_mean:.4f} s; walls: materialized {mat_wall:.3f} s "
+          f"({s * n / mat_wall:.4g} requests/s), streaming {str_wall:.3f} s "
+          f"({s * n / str_wall:.4g} requests/s)")
+    if int(st.stream.count.sum()) != lat.size:
+        failed.append("8e rider 2: the streamed count differs from the materialized one")
+    if not abs(str_mean - mat_mean) <= 1e-4 * abs(mat_mean) + 1e-7:
+        failed.append(f"8e rider 2: streamed mean {str_mean} vs {mat_mean}")
+    if not (exact <= sketch_p99 * (1 + 1e-6) and sketch_p99 <= exact * growth * (1 + 1e-6)):
+        failed.append(f"8e rider 2: sketch p99 {sketch_p99} against exact {exact}")
+    if not cached_mean < mat_mean:
+        failed.append(f"8e: the cached mean {cached_mean} is not below {mat_mean}")
+
+    # the cache on the card against the sequential walk, seed 0
+    t0, f0 = draws.arrival[0], draws.file_id[0]
+    ttl32 = ttl.astype(np.float32)
+    walk_exp, walk_hits = numpy_ttl_walk(np.full(r, -np.inf, np.float32), t0.cpu().numpy(),
+                                         f0.cpu().numpy(), ttl32)
+    card_exp, card_hits = ttl_cache_scan(torch.full((r,), -torch.inf, device=dev), t0, f0, ttl_t)
+    walk_ok = (np.array_equal(cached.hit[0].cpu().numpy(), walk_hits[n // 10:])
+               and np.array_equal(card_hits.cpu().numpy(), walk_hits)
+               and np.array_equal(card_exp.cpu().numpy(), walk_exp))
+    cold = torch.full((s, r), -torch.inf, device=dev)
+    sort_ms, _ = cuda_ms(lambda: ttl_cache_scan(cold, draws.arrival, draws.file_id, ttl_t), reps=5)
+    print(f"[8e] seed 0's hits ({int(walk_hits.sum())} of {n}) and final expiry on the card equal "
+          f"a host walk of the TTL cache: {walk_ok}; the sort-based cache on a chunk "
+          f"({s}, {n}): {sort_ms:.4f} ms")
+    if not walk_ok:
+        failed.append("8e: the card's cache differs from the host walk")
+
+    # B1 on a chunk's inputs with carried state
+    inputs = scan_inputs(*chunk_calls[-1][:2])
+    kernel_ms, _ = cuda_ms(lambda: fcfs_scan_cuda(*inputs), reps=5)
+    record = dict(ms=kernel_ms, **bound(s, n, NODES))
+    print(f"[8e] B1 at a chunk's ({s}, {n}, {NODES}) with carried dep and busy: kernel "
+          f"{kernel_ms:.4f} ms, bound {record['bound_ms']:.4f} ms ({record['bound_gb']:.3f} GB, "
+          f"{record['bound_by']}), its serial chain alone {limits['chain_ms']:.4f} ms (phase 1)")
+    return launches, chunk_calls + calls, record
+
+
+def phase_closed_loop(dev, sol, geo_pi, geo_mean: float, limits: dict) -> tuple:
+    """Phase 8: 8a-8e, then every B1 call of the phase held bitwise against
+    the plain twin, each with its own carried state, in one stacked walk.
+    Returns B1's launches by path, the largest busy |difference| and B1's
+    record on a stream chunk."""
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    model, ttl, aware = phase_cache_model(dev, sol, failed)
+    seg_launches, seg_calls, sched = phase_segments(dev, aware, ttl, failed)
+    cand_launches, cand_calls = phase_candidates(dev, sched, failed)
+    geo_launches, geo_calls = phase_geo_segments(dev, geo_pi, geo_mean, failed)
+    fleet_launches, fleet_calls, record = phase_stream_fleet(dev, aware, ttl, limits, failed)
+    by_path = {"segments_simulate": sum(seg_launches.values()),
+               "candidates_run_segment_batch": sum(cand_launches.values()),
+               "geo_segments_simulate": sum(geo_launches.values()),
+               "stream_fleet_simulate": sum(fleet_launches.values())}
+    print(f"[8] fcfs launches {by_path} (8b {seg_launches}, 8c {cand_launches}, 8d "
+          f"{geo_launches}, 8e {fleet_launches})")
+    calls = seg_calls + cand_calls + geo_calls + fleet_calls
+    del seg_calls, cand_calls, geo_calls, fleet_calls, sched
+    err = hold_stacked(calls, "8", "phase 8's scans, each with its carried state", dev)
+    del calls
+    torch.cuda.empty_cache()
+    print(f"[8] phase 8 wall {time.perf_counter() - t_phase:.3f} s")
+    if failed:
+        raise AssertionError("phase 8 failed: " + "; ".join(failed))
+    return by_path, err, record
 
 
 def main() -> int:
@@ -1695,7 +2198,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    probes = phase_build()
+    probes, card = phase_build()
     limits = phase_limits(dev, probes)
     worst = phase_kernel_vs_plain(dev)
     phase_gf256_vs_plain(dev, limits)
@@ -1708,16 +2211,19 @@ def main() -> int:
     t7 = time.perf_counter()
     hier_launches, hier_calls, hier = phase_hierarchical(dev)
     tenant_launches, tenant_err = phase_tenant(dev)
-    geo_launches, geo_calls = phase_geo(dev)
+    geo_launches, geo_calls, geo_pi, geo_mean = phase_geo(dev)
     # 7a's and 7c's fleets share (N, m): one plain-twin run holds both
     fleets_err = hold_stacked(hier_calls + geo_calls, "7", "7a and 7c fleets", dev)
+    del hier_calls, geo_calls
     print(f"[7] phase 7 wall {time.perf_counter() - t7:.3f} s")
+    closed_by_path, closed_err, chunk = phase_closed_loop(dev, sol, geo_pi, geo_mean, limits)
     by_path = {"quickstart_simulate": quick_launches,
                "catalog_simulate_fleet": fleet_launches,
                "figures_simulate": figure_launches,
                "hierarchical_simulate_fleet": hier_launches,
                "tenant_simulate": tenant_launches,
-               "geo_simulate_fleet": geo_launches}
+               "geo_simulate_fleet": geo_launches,
+               **closed_by_path}
     kernels = [{
         "name": "fcfs_scan",
         "route": "cuda",
@@ -1727,13 +2233,15 @@ def main() -> int:
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "max_abs_err": max(worst, quick_err, record["max_abs_err"], figure_err,
-                           tenant_err, fleets_err),
+                           tenant_err, fleets_err, closed_err),
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
         "bound_ms": record["bound_ms"],
         "bound_by": record["bound_by"],
         "ms_hierarchical_fleet": hier["ms"],  # phase 7a's (64, 100 000, 12)
         "bound_ms_hierarchical_fleet": hier["bound_ms"],
+        "ms_stream_chunk": chunk["ms"],  # phase 8e's (64, 100 000, 12), carried state
+        "bound_ms_stream_chunk": chunk["bound_ms"],
         "library_ms": None,
     }]
     for name, replaces, path in [
@@ -1776,6 +2284,7 @@ def main() -> int:
         "library_ms": flash["library_ms"],  # scaled_dot_product_attention, timed only
     })
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")
+    print(card)  # again, so that the end of the output names the card
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,7 +1,8 @@
 """Storage substrate in PyTorch: the calibrated testbed, the exact FCFS
-simulator (single run and seed fleet), streaming latency statistics,
-GF(256) Reed-Solomon and the plan-driven batched codec with its repair
-inventory."""
+simulator (single run, segments with failures and degraded reads, geo
+segments, candidate rollouts, and the seed fleet, materialized or
+streaming), the hot-tier cache, streaming latency statistics, GF(256)
+Reed-Solomon and the plan-driven batched codec with its repair inventory."""
 from .cluster import (
     ClientSite,
     Cluster,
@@ -11,6 +12,17 @@ from .cluster import (
     homogeneous_cluster,
     measured_fig6_moments,
     tahoe_testbed,
+)
+from .cache import (
+    HOT_REPLICATION,
+    WARM_OVERHEAD,
+    CacheModel,
+    CacheState,
+    che_characteristic_time,
+    che_hit_rates,
+    cold_cache,
+    simulate_ttl_cache,
+    ttl_cache_scan,
 )
 from .codec import (
     CodecGroup,
@@ -50,14 +62,29 @@ from .rs import (
 from .simulator import (
     ClassLatencyStats,
     FleetResult,
+    GeoSegmentResult,
+    NodeObservations,
+    SegmentResult,
+    SimCarry,
     SimDraws,
     SimResult,
+    dispatch_masks,
+    fleet_one_raw,
     generate_geo_workload,
     generate_workload,
+    init_carry,
     per_class_latency_stats,
+    run_geo_segment_batch,
+    run_geo_segment_raw,
+    run_segment_batch,
+    run_segment_raw,
     simulate,
     simulate_fleet,
+    simulate_geo_segment,
+    simulate_geo_segments,
     simulate_latency_cdf,
+    simulate_segment,
+    simulate_segments,
 )
 from .streaming import (
     DEFAULT_SKETCH,

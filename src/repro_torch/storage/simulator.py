@@ -18,8 +18,33 @@ the reference's own draws. ``simulate(sketch=...)`` also folds the run's
 latencies into streaming moments and a quantile sketch
 (``storage/streaming.py``), the surface the Fig. 10-12 CDF checks read.
 :func:`per_class_latency_stats` and :func:`simulate_latency_cdf` are
-host-side reporting. Segments, degraded reads, caches and streaming fleets
-are not ported yet (ROADMAP.md queue A: A14, with A13 for the cache tier).
+host-side reporting.
+
+Non-stationary runs (the closed loop's surface): :func:`simulate_segment`
+runs one *segment* of requests against a node-availability mask, an
+arrival-rate scale and a service drift, threading the FCFS queue state
+(:class:`SimCarry`) across segment boundaries so that a schedule of
+segments is one continuous history. A Madow-selected node that is down is
+replaced by the available spares with the highest priority draw (a
+degraded read keeps the k-of-n read size: any k chunks decode). Each
+segment reports per-node service observations (:class:`NodeObservations`)
+for a moment estimator. :func:`simulate_segments` runs a whole schedule as
+a loop over segments on the device (one B1 launch a segment, no host sync
+between them). Geo segments draw each request's service from its origin
+site's row; candidate rollouts (:func:`run_segment_batch`) run B plans x K
+draws from one carried state as ONE B1 launch under common random numbers.
+
+Hot/warm cache tier (`storage/cache.py`): every segment entry point and
+the fleet take an optional per-file TTL vector; the merged arrival stream
+first runs through the TTL-with-reset cache and only the misses reach
+dispatch and the FCFS queues — hits return at the hot tier's latency. The
+cache warmth rides in :class:`SimCarry` beside the queue state; TTLs all
+zero are bitwise the cache-free run.
+
+The streaming fleet (``simulate_fleet(stream=True, n_chunks=W)``) walks W
+chunks of requests, each one B1 launch with the carried ``dep``, ``busy``,
+clock and cache warmth, and folds each chunk into constant-size streaming
+statistics, so the horizon no longer sets the memory.
 """
 from __future__ import annotations
 
@@ -32,8 +57,20 @@ from torch import Tensor
 from repro_torch.core.scheduling import madow_sample
 from repro_torch.kernels.fcfs_queue import fcfs_scan
 
-from .cluster import Cluster, GeoFabric
-from .streaming import SketchSpec, StreamingStats, stream_from_values
+from .cache import ttl_cache_scan
+from .cluster import Cluster, GeoFabric, _device
+from .streaming import (
+    DEFAULT_SKETCH,
+    SketchSpec,
+    StreamingStats,
+    stream_from_values,
+    stream_init,
+    stream_mean,
+    stream_merge,
+    stream_quantile,
+    stream_reduce,
+    windowed_quantile_mean,
+)
 
 
 def _host(x) -> np.ndarray:
@@ -77,13 +114,24 @@ def per_class_latency_stats(
 
 
 class SimDraws(NamedTuple):
-    """The random inputs of a run; leading axes (N,) or (S, N)."""
+    """The random inputs of a run; leading axes (N,) or (S, N), and a chunk,
+    segment or draw axis in front where an entry point loops over one.
 
-    arrival: Tensor  # absolute arrival times
+    ``arrival`` counts from the start of the run: absolute for
+    :func:`simulate` and the materialized fleet, relative to the carried
+    clock for a segment or a stream chunk.
+    """
+
+    arrival: Tensor  # arrival times
     file_id: Tensor  # int64 file marks
     u: Tensor  # one U[0, 1) Madow uniform per request
     exp: Tensor  # (..., N, m) unit exponentials for the service draws
-    site_id: Tensor | None = None  # int64 client-site marks (fleet only)
+    site_id: Tensor | None = None  # int64 client-site marks (fleet, geo)
+    prio: Tensor | None = None  # (..., N, m) U[0, 1) spare priorities (segments)
+
+    def at(self, i: int) -> "SimDraws":
+        """The draws of entry ``i`` of the leading axis."""
+        return SimDraws(*(None if x is None else x[i] for x in self))
 
 
 class SimResult(NamedTuple):
@@ -118,21 +166,58 @@ class SimResult(NamedTuple):
 class FleetResult(NamedTuple):
     """A fleet of independent simulations, leading axis = seed (S,).
 
-    Materialized fields only: the streaming sketches of the reference are
-    not ported yet.
+    Two reporting modes:
+
+    * **materialized** (``stream=None``): per-request ``latency`` /
+      ``file_id`` / ``site_id`` (S, N) tensors, and ``hit`` (S, N) when a
+      cache tier ran.
+    * **streaming** (``file_id is None``): constant-size per-seed
+      :class:`~.streaming.StreamingStats` in ``stream``, per-chunk stats in
+      ``windows`` (S, W), post-warmup ``hit_count`` (S,) when a cache tier
+      ran, and ``sketch``, the bin geometry; ``latency`` is kept only when
+      the run was asked to keep it (validation).
     """
 
-    latency: Tensor  # (S, N) post-warmup latencies
-    file_id: Tensor  # (S, N)
-    site_id: Tensor  # (S, N)
+    latency: Tensor | None  # (S, N), or None in streaming mode
+    file_id: Tensor | None  # (S, N), or None in streaming mode
+    site_id: Tensor | None  # (S, N), or None in streaming mode
     node_busy: Tensor  # (S, m)
+    hit: Tensor | None = None  # (S, N) bool cache hits, or None (no cache)
+    stream: StreamingStats | None = None  # (S,)-batched, streaming mode
+    windows: StreamingStats | None = None  # (S, W)-batched per-chunk stats
+    hit_count: Tensor | None = None  # (S,) post-warmup hits (streaming + cache)
+    sketch: SketchSpec | None = None  # bin geometry of stream / windows
 
     def mean_latency(self) -> Tensor:
+        # the stream wins when both exist: keep_latency keeps the warmup
+        # region too, a superset of what the accumulators hold
+        if self.stream is not None:
+            return stream_mean(stream_reduce(self.stream))
         return torch.mean(self.latency)
+
+    def quantile(self, q: float) -> Tensor:
+        """Fleet-pooled latency quantile from the streaming sketch (merged
+        across seeds, exactly: integer bucket counts add)."""
+        if self.stream is None:
+            raise ValueError(
+                "quantile() needs a streaming run (simulate_fleet(stream="
+                "True)); materialized runs expose raw .latency instead"
+            )
+        return stream_quantile(stream_reduce(self.stream), q, self.sketch)
+
+    def p99_windowed(self, q: float = 0.99) -> Tensor:
+        """Mean of per-window (chunk) fleet-pooled sketch quantiles, the
+        SLO-dashboard aggregation."""
+        if self.windows is None:
+            raise ValueError("p99_windowed() needs a streaming run")
+        merged = stream_reduce(self.windows, axis=0)  # (W,) pooled per window
+        return windowed_quantile_mean(merged, q, self.sketch)
 
     def per_site_mean(self, n_sites: int) -> Tensor:
         """(C,) mean latency by request origin site; a site that originated
-        no request gets NaN, never a 0-count mean."""
+        no request gets NaN, never a 0-count mean. Materialized runs only."""
+        if self.site_id is None:
+            raise ValueError("per_site_mean() needs a materialized run")
         site = self.site_id.reshape(-1)
         tot = torch.zeros(n_sites, dtype=self.latency.dtype, device=site.device)
         tot.index_add_(0, site, self.latency.reshape(-1))
@@ -189,14 +274,21 @@ def generate_geo_workload(
 
 
 def _draw(
-    generator: torch.Generator, lam_cs: Tensor, shape: tuple[int, ...], m: int
+    generator: torch.Generator,
+    lam_cs: Tensor,
+    shape: tuple[int, ...],
+    m: int,
+    prio: bool = False,
 ) -> SimDraws:
     t, file_id, site_id = _workload(generator, lam_cs, shape)
     dev = lam_cs.device
     u = torch.rand(shape, generator=generator, dtype=torch.float32, device=dev)
     exp = torch.empty(shape + (m,), dtype=torch.float32, device=dev)
     exp.exponential_(generator=generator)
-    return SimDraws(t, file_id, u, exp, site_id)
+    pr = None
+    if prio:
+        pr = torch.rand(shape + (m,), generator=generator, dtype=torch.float32, device=dev)
+    return SimDraws(t, file_id, u, exp, site_id, pr)
 
 
 def _check_generator(generator: torch.Generator | None, device: torch.device):
@@ -206,6 +298,18 @@ def _check_generator(generator: torch.Generator | None, device: torch.device):
         raise ValueError(
             f"generator is on {generator.device}, the simulated system on {device}"
         )
+
+
+def _draws_for(
+    generator, draws: SimDraws | None, lam_cs: Tensor, shape, m: int, prio: bool
+) -> SimDraws:
+    """The run's draws: ``draws`` as given, else fresh from ``generator``."""
+    if draws is None:
+        _check_generator(generator, lam_cs.device)
+        return _draw(generator, lam_cs, tuple(shape), m, prio)
+    if prio and draws.prio is None:
+        raise ValueError("segment draws need prio, the spare-priority uniforms")
+    return draws
 
 
 def simulate(
@@ -235,9 +339,7 @@ def simulate(
     r, m = pi.shape
     if m != cluster.m:
         raise ValueError(f"pi has {m} nodes, the cluster {cluster.m}")
-    if draws is None:
-        _check_generator(generator, dev)
-        draws = _draw(generator, lam[None, :], (n_requests,), m)
+    draws = _draws_for(generator, draws, lam[None, :], (n_requests,), m, False)
     if per_file_chunk_mb is not None:
         chunk = _on(per_file_chunk_mb, dev)[draws.file_id][:, None]
     else:
@@ -264,6 +366,730 @@ def simulate_latency_cdf(result: SimResult, qs: np.ndarray | None = None):
     return qs, np.quantile(_host(result.latency), qs)
 
 
+# ---------------------------------------------------------------------------
+# Segmented (non-stationary) simulation: failures, flash crowds, drift.
+# ---------------------------------------------------------------------------
+
+
+class NodeObservations(NamedTuple):
+    """Per-node service-time measurements from one segment.
+
+    ``count`` chunks served per node plus raw power sums of the observed
+    service times — what a node-side agent reports to a control plane, and
+    enough for unbiased estimates of the first three raw moments Lemma 3
+    needs. Nodes that served nothing (down, or no dispatch mass) have
+    ``count == 0``.
+    """
+
+    count: Tensor  # (m,) int32 chunks served
+    s1: Tensor  # (m,) sum of service times
+    s2: Tensor  # (m,) sum of squares
+    s3: Tensor  # (m,) sum of cubes
+
+
+class SimCarry(NamedTuple):
+    """FCFS queue state threaded across segment boundaries.
+
+    ``cache`` is the hot-tier cache state — per-file absolute expiry times
+    (`storage/cache.py`) — or None when no cache tier is simulated. Cache
+    warmth, like queue depth, is history that must survive a boundary.
+    """
+
+    dep: Tensor  # (m,) last scheduled departure per node
+    t0: Tensor  # () absolute clock at the segment boundary
+    cache: Tensor | None = None  # (r,) per-file expiry times, or None
+
+
+class SegmentResult(NamedTuple):
+    latency: Tensor  # (N,) per-request file latency
+    file_id: Tensor  # (N,)
+    arrival: Tensor  # (N,) absolute arrival times
+    node_busy: Tensor  # (m,) busy seconds added this segment
+    degraded: Tensor  # (N,) bool: >= 1 selected node was down (read fell back)
+    obs: NodeObservations
+    t_end: Tensor  # () absolute time of the last arrival
+    hit: Tensor | None = None  # (N,) bool cache hits, or None (no cache tier)
+
+    def mean_latency(self) -> Tensor:
+        return torch.mean(self.latency)
+
+
+class GeoSegmentResult(NamedTuple):
+    """One geo segment: like :class:`SegmentResult` plus the client axis.
+
+    ``site_id`` records each request's origin site; ``obs`` carries
+    per-(site, node) sums, every field (C, m).
+    """
+
+    latency: Tensor  # (N,)
+    file_id: Tensor  # (N,)
+    site_id: Tensor  # (N,) request origin client site
+    arrival: Tensor  # (N,) absolute arrival times
+    node_busy: Tensor  # (m,) busy seconds added this segment
+    degraded: Tensor  # (N,) bool
+    obs: NodeObservations  # per-(site, node): every field (C, m)
+    t_end: Tensor  # ()
+
+    def mean_latency(self) -> Tensor:
+        return torch.mean(self.latency)
+
+
+def init_carry(
+    m: int,
+    *,
+    cache_files: int | None = None,
+    device: str | torch.device = "cuda",
+) -> SimCarry:
+    """Fresh carry on ``device``: idle queues and — when ``cache_files`` is
+    given — a cold hot-tier cache over that many files (expiries -inf)."""
+    dev = _device(device)
+    f32 = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=dev)
+    cache = None if cache_files is None else f32((cache_files,), -torch.inf)
+    return SimCarry(dep=f32((m,), 0.0), t0=f32((), 0.0), cache=cache)
+
+
+def _spare_fill(
+    sel: Tensor, k_req: Tensor, prio: Tensor, avail: Tensor
+) -> tuple[Tensor, Tensor]:
+    """Replace selected-but-down nodes by the available spares with the
+    highest priority, keeping the read at ``k_req`` nodes where it can.
+
+    ``sel`` (..., m) Madow sets, ``k_req`` (...) read sizes, ``prio``
+    broadcastable to ``sel``. Ranks are the reference's
+    ``argsort(argsort(-score))`` with stable sorts.
+    """
+    alive = sel & avail
+    need = k_req - torch.sum(alive, dim=-1)
+    cand = avail & ~sel
+    score = torch.where(cand, prio, -1.0)
+    rank = torch.argsort(torch.argsort(-score, dim=-1, stable=True), dim=-1, stable=True)
+    # when need exceeds the candidate pool (thin availability) every
+    # available unselected node joins: the union is then exactly `avail`
+    add = cand & (rank < need[..., None])
+    return alive | add, torch.any(sel & ~avail, dim=-1)
+
+
+def dispatch_masks(
+    u: Tensor, prio: Tensor, pi: Tensor, file_id: Tensor, avail: Tensor
+) -> tuple[Tensor, Tensor]:
+    """Per-request service sets under the availability mask ``avail`` (m,).
+
+    Each request Madow-samples its k_i-subset of ``pi[file_id]`` with its
+    uniform ``u`` (exact Theorem-1 marginals). Selected-but-down nodes are
+    then replaced by the available spares whose priority draw ``prio``
+    (..., N, m) is highest, keeping the read size k_i: a degraded read (any
+    k chunks of an (n, k) MDS code decode).
+
+    Returns ``(masks, degraded)``: (..., N, m) bool service sets and
+    (..., N) bool flags marking requests whose Madow set hit a down node.
+    Under thin availability (fewer than k_i nodes up) the service set is
+    exactly ``avail`` and the request is flagged degraded, the convention
+    ``storage/repair.py`` follows too. ``pi`` may be a (B, r, m) stack of
+    candidate plans on common draws; the results then gain a leading (B,)
+    axis.
+    """
+    avail = torch.as_tensor(avail, dtype=torch.bool, device=pi.device)
+    k_per_file = torch.round(torch.sum(pi, dim=-1)).to(torch.int64)
+    sel = madow_sample(u, pi[..., file_id, :])
+    return _spare_fill(sel, k_per_file[..., file_id], prio, avail)
+
+
+def _scan(
+    arrival: Tensor, serve: Tensor, service: Tensor, dep0: Tensor
+) -> tuple[Tensor, Tensor, Tensor]:
+    """B1 over the leading axes of ``serve`` as ONE launch; ``arrival``,
+    ``service`` and ``dep0`` broadcast against them (common draws)."""
+    if serve.dim() == 2:
+        return fcfs_scan(arrival, serve, service, dep0)
+    lead = serve.shape[:-2]
+    n, m = serve.shape[-2:]
+    flat = lambda x, *event: x.expand(lead + event).reshape((-1,) + event)
+    latency, dep, busy = fcfs_scan(
+        flat(arrival, n), serve.reshape((-1, n, m)), flat(service, n, m), flat(dep0, m)
+    )
+    return (latency.reshape(lead + (n,)), dep.reshape(lead + (m,)),
+            busy.reshape(lead + (m,)))
+
+
+def _observations(serve: Tensor, service: Tensor) -> NodeObservations:
+    served = torch.where(serve, service, 0.0)
+    return NodeObservations(
+        count=torch.sum(serve, dim=-2, dtype=torch.int32),
+        s1=torch.sum(served, dim=-2),
+        s2=torch.sum(served**2, dim=-2),
+        s3=torch.sum(served**3, dim=-2),
+    )
+
+
+def _run_segment(
+    carry: SimCarry,
+    draws: SimDraws,
+    pi: Tensor,
+    overheads: Tensor,
+    rates: Tensor,
+    avail: Tensor,
+    ttl: Tensor | None = None,
+    hit_latency: Tensor | float = 0.0,
+) -> tuple[SimCarry, SegmentResult]:
+    """One segment on explicit draws; ``pi`` (r, m), or a (B, r, m) stack
+    of candidates on common draws with a leading (K,) axis.
+
+    ``overheads``/``rates`` are the (already drift-scaled) shifted-
+    exponential service parameters, ``avail`` the (m,) availability mask.
+    In order: arrivals ``t0 + rel`` (float32), the dispatch masks, the cache
+    pre-scan (``ttl`` not None: hits leave the masks and the degraded
+    flags), B1 from the carried ``dep``, ``hit_latency`` over each hit's
+    latency, then the observation sums of what the queues served.
+    """
+    arrival = carry.t0 + draws.arrival
+    service = overheads + draws.exp / rates
+    masks, degraded = dispatch_masks(draws.u, draws.prio, pi, draws.file_id, avail)
+    hit, serve, new_cache = None, masks, carry.cache
+    if ttl is not None:
+        expiry = carry.cache
+        if expiry is None:
+            expiry = torch.full(ttl.shape[-1:], -torch.inf, device=ttl.device)
+        new_cache, hit = ttl_cache_scan(expiry, arrival, draws.file_id, ttl)
+        serve = masks & ~hit[..., None]
+        degraded = degraded & ~hit
+    latency, dep, busy = _scan(arrival, serve, service, carry.dep)
+    if hit is not None:
+        latency = torch.where(hit, hit_latency, latency)
+    new_carry = SimCarry(dep=dep, t0=arrival[..., -1], cache=new_cache)
+    return new_carry, SegmentResult(
+        latency=latency,
+        file_id=draws.file_id,
+        arrival=arrival,
+        node_busy=busy,
+        degraded=degraded,
+        obs=_observations(serve, service),
+        t_end=arrival[..., -1],
+        hit=hit,
+    )
+
+
+def _hit_latency(hit_latency, device: torch.device) -> Tensor:
+    return torch.as_tensor(hit_latency, dtype=torch.float32, device=device)
+
+
+def run_segment_raw(
+    carry: SimCarry,
+    generator: torch.Generator | None,
+    pi: Tensor,
+    lam: Tensor,
+    overheads: Tensor,
+    rates: Tensor,
+    avail: Tensor,
+    n_requests: int,
+    ttl: Tensor | None = None,
+    hit_latency: Tensor | float = 0.0,
+    *,
+    draws: SimDraws | None = None,
+) -> tuple[SimCarry, SegmentResult]:
+    """One segment from explicit shifted-exponential service parameters (no
+    Cluster object): the surface control-plane code rolls candidate plans
+    out on from *estimated* parameters. Runs where ``pi`` lives; ``draws``
+    (leading (N,), ``prio`` set, arrivals relative to ``carry.t0``)
+    replace the generator's draws at rates ``lam``."""
+    dev = pi.device
+    draws = _draws_for(generator, draws, lam[None, :], (n_requests,), pi.shape[-1], True)
+    return _run_segment(
+        carry, draws, pi, overheads, rates, avail, ttl, _hit_latency(hit_latency, dev)
+    )
+
+
+def simulate_segment(
+    generator: torch.Generator | None,
+    pi: Tensor,
+    lam: Tensor,
+    cluster: Cluster,
+    chunk_mb: float,
+    n_requests: int,
+    *,
+    avail: Tensor | None = None,
+    rate_scale: float | Tensor = 1.0,
+    overhead_scale: float | Tensor = 1.0,
+    bandwidth_scale: float | Tensor = 1.0,
+    carry: SimCarry | None = None,
+    cache_ttl: Tensor | None = None,
+    cache_hit_latency: float = 0.0,
+    draws: SimDraws | None = None,
+) -> tuple[SegmentResult, SimCarry]:
+    """Simulate one segment against a possibly-perturbed cluster state.
+
+    The caller owns ``pi`` (and may re-plan it between segments) while the
+    queue state persists in ``carry``. ``rate_scale`` multiplies arrival
+    rates — a scalar scales every file, an (r,) vector scales per file
+    (e.g. switching repair rows on and off, `storage/repair.py`).
+    ``overhead_scale`` / ``bandwidth_scale`` (scalar or (m,)) drift the
+    service parameters. ``cache_ttl`` (r,) switches on the hot-tier cache
+    in front of the queues (zeros mark uncached files; warmth persists in
+    ``carry``). Runs on ``cluster.device``; ``draws`` as in
+    :func:`run_segment_raw`.
+    """
+    dev = cluster.device
+    m = cluster.m
+    avail = torch.ones((m,), dtype=torch.bool, device=dev) if avail is None else _on(
+        avail, dev, torch.bool)
+    ttl = None if cache_ttl is None else _on(cache_ttl, dev)
+    if carry is None:
+        carry = init_carry(m, cache_files=None if ttl is None else ttl.shape[0], device=dev)
+    elif ttl is not None and carry.cache is None:
+        carry = carry._replace(cache=torch.full(ttl.shape, -torch.inf, device=dev))
+    overheads = cluster.overheads() * _on(overhead_scale, dev)
+    rates = cluster.bandwidths() * _on(bandwidth_scale, dev) / _on(chunk_mb, dev)
+    lam_s = _on(lam, dev) * _on(rate_scale, dev)
+    new_carry, res = run_segment_raw(
+        carry, generator, _on(pi, dev), lam_s, overheads, rates, avail, n_requests,
+        ttl, cache_hit_latency, draws=draws,
+    )
+    return res, new_carry
+
+
+def _stack(results: list):
+    """Stack a list of per-segment results along a new leading axis."""
+    stack = lambda xs: None if xs[0] is None else torch.stack(xs)
+    first = results[0]
+    fields = {}
+    for name in first._fields:
+        if name == "obs":
+            fields[name] = NodeObservations(
+                *(torch.stack(f) for f in zip(*(res.obs for res in results))))
+        else:
+            fields[name] = stack([getattr(res, name) for res in results])
+    return type(first)(**fields)
+
+
+def _segment_count(*candidates) -> int:
+    n_seg = None
+    for cand in candidates:
+        if cand is None:
+            continue
+        if n_seg is None:
+            n_seg = int(cand)
+        elif n_seg != int(cand):
+            raise ValueError(f"inconsistent segment counts: {n_seg} vs {int(cand)}")
+    if n_seg is None:
+        raise ValueError(
+            "cannot infer the segment count: pass a (S, r, m) pi_seq or any "
+            "per-segment sequence"
+        )
+    return n_seg
+
+
+def _lead(seq):
+    return None if seq is None else np.shape(seq)[0]
+
+
+def simulate_segments(
+    generator: torch.Generator | None,
+    pi_seq: Tensor,
+    lam: Tensor,
+    cluster: Cluster,
+    chunk_mb: float,
+    n_requests: int,
+    *,
+    avail_seq: Tensor | None = None,
+    rate_scale_seq: Tensor | None = None,
+    overhead_scale_seq: Tensor | None = None,
+    bandwidth_scale_seq: Tensor | None = None,
+    cache_ttl_seq: Tensor | None = None,
+    cache_hit_latency: float = 0.0,
+    draws: SimDraws | None = None,
+) -> SegmentResult:
+    """Run a whole segment schedule from idle queues as one device loop.
+
+    ``pi_seq`` is (S, r, m) — or (r, m), broadcast to every segment — and
+    the optional per-segment sequences are ``avail_seq`` (S, m) bool,
+    ``rate_scale_seq`` (S,) — or (S, r) per file, which switches repair
+    rows on in outage segments only — ``overhead_scale_seq`` /
+    ``bandwidth_scale_seq`` (S,) or (S, m), and ``cache_ttl_seq`` (S, r)
+    or (r,) (an all-zero row is a hot-tier outage: nothing hits, and the
+    cache drains). Each segment is one B1 launch from the carried state,
+    with no host sync between segments; every field of the returned
+    :class:`SegmentResult` gains a leading (S,) axis. ``draws`` carries a
+    leading (S,) segment axis. The same schedule as a host loop of
+    :func:`simulate_segment` on the same draws is bitwise this.
+    """
+    dev = cluster.device
+    m = cluster.m
+    pi_seq = _on(pi_seq, dev)
+    n_seg = _segment_count(
+        pi_seq.shape[0] if pi_seq.dim() == 3 else None,
+        _lead(rate_scale_seq), _lead(avail_seq), _lead(overhead_scale_seq),
+        _lead(bandwidth_scale_seq), None if draws is None else draws.arrival.shape[0],
+    )
+    rate_scale_seq = (torch.ones((n_seg,), device=dev) if rate_scale_seq is None
+                      else _on(rate_scale_seq, dev))
+    if pi_seq.dim() == 2:
+        pi_seq = pi_seq.expand((n_seg,) + tuple(pi_seq.shape))
+    avail_seq = (torch.ones((n_seg, m), dtype=torch.bool, device=dev) if avail_seq is None
+                 else _on(avail_seq, dev, torch.bool))
+
+    def scales(seq):
+        if seq is None:
+            return torch.ones((n_seg, m), device=dev)
+        seq = _on(seq, dev)
+        return (seq[:, None] if seq.dim() == 1 else seq).expand((n_seg, m))
+
+    overheads_seq = cluster.overheads() * scales(overhead_scale_seq)
+    rates_seq = cluster.bandwidths() * scales(bandwidth_scale_seq) / _on(chunk_mb, dev)
+    if cache_ttl_seq is not None:
+        cache_ttl_seq = _on(cache_ttl_seq, dev)
+        if cache_ttl_seq.dim() == 1:
+            cache_ttl_seq = cache_ttl_seq.expand((n_seg,) + tuple(cache_ttl_seq.shape))
+    lam = _on(lam, dev)
+    hit_latency = _hit_latency(cache_hit_latency, dev)
+    carry = init_carry(
+        m, cache_files=None if cache_ttl_seq is None else int(cache_ttl_seq.shape[-1]),
+        device=dev)
+    results = []
+    for s in range(n_seg):
+        seg = _draws_for(generator, None if draws is None else draws.at(s),
+                         (lam * rate_scale_seq[s])[None, :], (n_requests,), m, True)
+        carry, res = _run_segment(
+            carry, seg, pi_seq[s], overheads_seq[s], rates_seq[s], avail_seq[s],
+            None if cache_ttl_seq is None else cache_ttl_seq[s], hit_latency,
+        )
+        results.append(res)
+    return _stack(results)
+
+
+# ---------------------------------------------------------------------------
+# Geo-aware segments: per-(client-site, node) service.
+# ---------------------------------------------------------------------------
+
+
+def _run_geo_segment(
+    carry: SimCarry,
+    draws: SimDraws,
+    pi: Tensor,
+    overheads_cs: Tensor,
+    rates_cs: Tensor,
+    avail: Tensor,
+) -> tuple[SimCarry, GeoSegmentResult]:
+    """One geo segment: site-dependent service, shared per-node FCFS queues.
+
+    ``overheads_cs`` / ``rates_cs`` are (C, m); each request draws service
+    from its origin site's row, but every site contends for the same m
+    queues. ``pi`` is one plan or a (B, r, m) candidate stack, as in
+    :func:`_run_segment`. Observations come back per (site, node).
+    """
+    c = overheads_cs.shape[0]
+    site = draws.site_id
+    arrival = carry.t0 + draws.arrival
+    service = overheads_cs[site] + draws.exp / rates_cs[site]
+    masks, degraded = dispatch_masks(draws.u, draws.prio, pi, draws.file_id, avail)
+    latency, dep, busy = _scan(arrival, masks, service, carry.dep)
+    site_oh = torch.nn.functional.one_hot(site, c).to(torch.float32)  # (..., N, C)
+    served = torch.where(masks, service, 0.0)
+    pair = lambda x: torch.einsum("...nc,...nm->...cm", site_oh, x)
+    obs = NodeObservations(
+        count=pair(masks.to(torch.float32)).to(torch.int32),
+        s1=pair(served),
+        s2=pair(served**2),
+        s3=pair(served**3),
+    )
+    new_carry = SimCarry(dep=dep, t0=arrival[..., -1])
+    return new_carry, GeoSegmentResult(
+        latency=latency,
+        file_id=draws.file_id,
+        site_id=site,
+        arrival=arrival,
+        node_busy=busy,
+        degraded=degraded,
+        obs=obs,
+        t_end=arrival[..., -1],
+    )
+
+
+def run_geo_segment_raw(
+    carry: SimCarry,
+    generator: torch.Generator | None,
+    pi: Tensor,
+    lam_cs: Tensor,
+    overheads_cs: Tensor,
+    rates_cs: Tensor,
+    avail: Tensor,
+    n_requests: int,
+    *,
+    draws: SimDraws | None = None,
+) -> tuple[SimCarry, GeoSegmentResult]:
+    """The geo twin of :func:`run_segment_raw` (``lam_cs`` (C, r));
+    ``draws`` need ``site_id`` and ``prio``."""
+    draws = _draws_for(generator, draws, lam_cs, (n_requests,), pi.shape[-1], True)
+    if draws.site_id is None:
+        raise ValueError("geo draws need site_id")
+    return _run_geo_segment(carry, draws, pi, overheads_cs, rates_cs, avail)
+
+
+def simulate_geo_segment(
+    generator: torch.Generator | None,
+    pi: Tensor,
+    lam_cs: Tensor,
+    fabric: GeoFabric,
+    chunk_mb: float,
+    n_requests: int,
+    *,
+    avail: Tensor | None = None,
+    rate_scale: float | Tensor = 1.0,
+    overhead_scale: float | Tensor = 1.0,
+    bandwidth_scale: float | Tensor = 1.0,
+    carry: SimCarry | None = None,
+    draws: SimDraws | None = None,
+) -> tuple[GeoSegmentResult, SimCarry]:
+    """Host-facing geo segment against a :class:`~.cluster.GeoFabric`.
+
+    ``lam_cs`` is the (C, r) per-site arrival matrix; ``rate_scale``
+    multiplies it (scalar, (C, 1) or (C, r)). ``overhead_scale`` /
+    ``bandwidth_scale`` broadcast against the fabric's (C, m) profile:
+    per-pair drift. Runs on ``fabric.cluster.device``.
+    """
+    dev = fabric.cluster.device
+    m = fabric.m
+    avail = torch.ones((m,), dtype=torch.bool, device=dev) if avail is None else _on(
+        avail, dev, torch.bool)
+    carry = init_carry(m, device=dev) if carry is None else carry
+    d, rates = fabric.service_params(chunk_mb)
+    overheads = d * _on(overhead_scale, dev)
+    rates = rates * _on(bandwidth_scale, dev)
+    lam_s = _on(lam_cs, dev) * _on(rate_scale, dev)
+    new_carry, res = run_geo_segment_raw(
+        carry, generator, _on(pi, dev), lam_s, overheads, rates, avail, n_requests,
+        draws=draws,
+    )
+    return res, new_carry
+
+
+def simulate_geo_segments(
+    generator: torch.Generator | None,
+    pi_seq: Tensor,
+    lam_cs_seq: Tensor,
+    fabric: GeoFabric,
+    chunk_mb: float,
+    n_requests: int,
+    *,
+    avail_seq: Tensor | None = None,
+    overhead_scale_seq: Tensor | None = None,
+    bandwidth_scale_seq: Tensor | None = None,
+    draws: SimDraws | None = None,
+) -> GeoSegmentResult:
+    """A whole geo schedule from idle queues as one device loop.
+
+    ``lam_cs_seq`` is (S, C, r) — the per-segment client mix is folded into
+    the rates (follow-the-sun is a row reweighting). ``pi_seq`` is
+    (S, r, m) or (r, m) broadcast; the scale sequences broadcast to
+    (S, C, m). One B1 launch a segment; fields gain a leading (S,) axis.
+    """
+    dev = fabric.cluster.device
+    lam_cs_seq = _on(lam_cs_seq, dev)
+    if lam_cs_seq.dim() != 3:
+        raise ValueError(f"lam_cs_seq must be (S, C, r), got shape {tuple(lam_cs_seq.shape)}")
+    n_seg = lam_cs_seq.shape[0]
+    m, c = fabric.m, fabric.n_sites
+    pi_seq = _on(pi_seq, dev)
+    if pi_seq.dim() == 2:
+        pi_seq = pi_seq.expand((n_seg,) + tuple(pi_seq.shape))
+    avail_seq = (torch.ones((n_seg, m), dtype=torch.bool, device=dev) if avail_seq is None
+                 else _on(avail_seq, dev, torch.bool))
+
+    def scales(seq):
+        if seq is None:
+            return torch.ones((n_seg, c, m), device=dev)
+        return _on(seq, dev).expand((n_seg, c, m))
+
+    d, rates = fabric.service_params(chunk_mb)
+    overheads_seq = d * scales(overhead_scale_seq)
+    rates_seq = rates * scales(bandwidth_scale_seq)
+    carry = init_carry(m, device=dev)
+    results = []
+    for s in range(n_seg):
+        seg = _draws_for(generator, None if draws is None else draws.at(s),
+                         lam_cs_seq[s], (n_requests,), m, True)
+        carry, res = _run_geo_segment(
+            carry, seg, pi_seq[s], overheads_seq[s], rates_seq[s], avail_seq[s])
+        results.append(res)
+    return _stack(results)
+
+
+# ---------------------------------------------------------------------------
+# Candidate-batched rollouts: every candidate plan (x every rollout draw)
+# simulated by ONE B1 launch — the replanner's arbitration surface.
+# ---------------------------------------------------------------------------
+
+
+def _candidate_result(res, b: int):
+    """Give the fields that come from the shared draws (file marks, arrivals,
+    hits) a leading (B,) candidate axis, like every other field."""
+    shared = ("file_id", "site_id", "arrival", "t_end", "hit")
+    return res._replace(**{
+        f: getattr(res, f).expand((b,) + tuple(getattr(res, f).shape))
+        for f in shared if f in res._fields and getattr(res, f) is not None})
+
+
+def run_segment_batch(
+    carry: SimCarry,
+    generator: torch.Generator | None,
+    pi_stack: Tensor,
+    lam: Tensor,
+    overheads: Tensor,
+    rates: Tensor,
+    avail: Tensor,
+    n_requests: int,
+    ttl: Tensor | None = None,
+    hit_latency: Tensor | float = 0.0,
+    *,
+    n_draws: int = 1,
+    draws: SimDraws | None = None,
+) -> SegmentResult:
+    """Roll a (B, r, m) stack of candidate plans out from ONE queue state.
+
+    Every candidate sees the same K draws (common random numbers: the same
+    arrivals, service draws, Madow and spare uniforms), so score
+    differences are plan differences, and with K = 1 each candidate's
+    stream is bitwise the one :func:`run_segment_raw` gives that plan
+    alone. The B x K systems run as ONE B1 launch over (B·K, N, m) from
+    the carried ``dep``; the cache pre-scan, which does not depend on the
+    plan, runs once per draw. Every field gains leading (B, K) axes; the
+    carry is not advanced (rollouts are hypothetical). ``draws`` has a
+    leading (K,) axis; else ``n_draws`` sets K.
+    """
+    dev = pi_stack.device
+    draws = _draws_for(generator, draws, lam[None, :], (n_draws, n_requests),
+                       pi_stack.shape[-1], True)
+    _, res = _run_segment(
+        carry, draws, pi_stack, overheads, rates, avail, ttl, _hit_latency(hit_latency, dev)
+    )
+    return _candidate_result(res, pi_stack.shape[0])
+
+
+def run_geo_segment_batch(
+    carry: SimCarry,
+    generator: torch.Generator | None,
+    pi_stack: Tensor,
+    lam_cs: Tensor,
+    overheads_cs: Tensor,
+    rates_cs: Tensor,
+    avail: Tensor,
+    n_requests: int,
+    *,
+    n_draws: int = 1,
+    draws: SimDraws | None = None,
+) -> GeoSegmentResult:
+    """Geo twin of :func:`run_segment_batch`: (B, K) rollouts of
+    :func:`run_geo_segment_raw` under common random numbers, one B1 launch."""
+    draws = _draws_for(generator, draws, lam_cs, (n_draws, n_requests),
+                       pi_stack.shape[-1], True)
+    if draws.site_id is None:
+        raise ValueError("geo draws need site_id")
+    _, res = _run_geo_segment(carry, draws, pi_stack, overheads_cs, rates_cs, avail)
+    return _candidate_result(res, pi_stack.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# Fleet-scale simulation: many independent systems in one program.
+# ---------------------------------------------------------------------------
+
+
+def _fleet_inputs(draws: SimDraws, pi, overheads_cs, rates_cs, ttl=None, t0=None,
+                  cache=None):
+    """One batch of merged request streams: arrivals (``t0`` + the relative
+    draws, or the draws as they are), marks, service draws, Madow service
+    sets and — with a hot tier — the cache hits thinned out of the masks.
+    Every site shares one hot tier keyed by file."""
+    t = draws.arrival if t0 is None else t0[..., None] + draws.arrival
+    site = draws.site_id
+    service = overheads_cs[site] + draws.exp / rates_cs[site]
+    masks = madow_sample(draws.u, pi[draws.file_id])
+    hit, new_cache = None, cache
+    if ttl is not None:
+        expiry = cache
+        if expiry is None:
+            expiry = torch.full(ttl.shape[-1:], -torch.inf, device=ttl.device)
+        new_cache, hit = ttl_cache_scan(expiry, t, draws.file_id, ttl)
+        masks = masks & ~hit[..., None]
+    return t, draws.file_id, site, masks, service, hit, new_cache
+
+
+def _fleet_one(draws, pi, overheads_cs, rates_cs, warm, ttl=None, hit_latency=0.0):
+    t, file_id, site_id, masks, service, hit, _ = _fleet_inputs(
+        draws, pi, overheads_cs, rates_cs, ttl)
+    # busy accrues in the scan's carry, not per step: an (N, m) busy output
+    # would dominate the kernel's memory traffic
+    latency, _, busy = fcfs_scan(t, masks, service)
+    if hit is not None:
+        latency = torch.where(hit, hit_latency, latency)
+    return (latency[..., warm:], file_id[..., warm:], site_id[..., warm:], busy,
+            None if hit is None else hit[..., warm:])
+
+
+def fleet_one_raw(
+    generator: torch.Generator | None,
+    pi: Tensor,
+    lam_cs: Tensor,
+    overheads_cs: Tensor,
+    rates_cs: Tensor,
+    n_requests: int,
+    warm: int,
+    ttl: Tensor | None = None,
+    hit_latency: Tensor | float = 0.0,
+    *,
+    draws: SimDraws | None = None,
+) -> tuple:
+    """One seed of the materialized fleet from raw (C, m) service
+    parameters: ``(latency, file_id, site_id, busy, hit)`` after ``warm``
+    requests (``hit`` None without a TTL). ``draws`` (leading (N,),
+    ``site_id`` set) replace the generator's."""
+    draws = _draws_for(generator, draws, lam_cs, (n_requests,), pi.shape[-1], False)
+    if draws.site_id is None:
+        raise ValueError("fleet draws need site_id")
+    return _fleet_one(draws, pi, overheads_cs, rates_cs, warm, ttl,
+                      _hit_latency(hit_latency, pi.device))
+
+
+def _fleet_stream_batched(
+    generator, draws, pi, lam_cs, overheads_cs, rates_cs, ttl, hit_latency,
+    n_seeds, n_chunks, block, warm, sketch, materialize=False,
+):
+    """Streaming fleet: a device loop over ``n_chunks`` request blocks.
+
+    The carry — FCFS ``dep`` and accrued ``busy``, the absolute clock, the
+    cache warmth (S, r), the streaming accumulators and the hit count, all
+    (S,)-batched — keeps memory at O(S x block) whatever the horizon. Each
+    chunk draws its block (arrivals continue from the carried clock), runs
+    ONE B1 launch from the carried state, and folds the block's post-warmup
+    latencies into the global accumulators and that chunk's window stats.
+    ``materialize`` also keeps every block's latencies (validation).
+    """
+    dev = pi.device
+    s, m, r = n_seeds, overheads_cs.shape[-1], lam_cs.shape[-1]
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+    dep, busy, t0 = zeros(s, m), zeros(s, m), zeros(s)
+    cache = None if ttl is None else torch.full((s, r), -torch.inf, device=dev)
+    stats = stream_init(sketch, (s,), device=dev)
+    hit_count = None if ttl is None else torch.zeros((s,), dtype=torch.int32, device=dev)
+    windows, lats = [], []
+    for w in range(n_chunks):
+        chunk = _draws_for(generator, None if draws is None else draws.at(w), lam_cs,
+                           (s, block), m, False)
+        t, _, _, masks, service, hit, cache = _fleet_inputs(
+            chunk, pi, overheads_cs, rates_cs, ttl, t0, cache)
+        latency, dep, busy = fcfs_scan(t, masks, service, dep, busy)
+        if hit is not None:
+            latency = torch.where(hit, hit_latency, latency)
+        include = (w * block + torch.arange(block, device=dev) >= warm).expand(latency.shape)
+        window = stream_from_values(latency, sketch, include=include)
+        stats = stream_merge(stats, window)
+        if hit is not None:
+            hit_count = hit_count + torch.sum(hit & include, dim=1, dtype=torch.int32)
+        t0 = t[:, -1]
+        windows.append(window)
+        if materialize:
+            lats.append(latency)
+    windows = StreamingStats(*(torch.stack(f, dim=1) for f in zip(*windows)))
+    return stats, windows, busy, hit_count, torch.cat(lats, dim=1) if materialize else None
+
+
 def simulate_fleet(
     generator: torch.Generator | None,
     pi: Tensor,
@@ -276,8 +1102,11 @@ def simulate_fleet(
     drop_warmup: float = 0.1,
     devices: str = "auto",
     cache_ttl: Tensor | None = None,
+    cache_hit_latency: float = 0.0,
     stream: bool = False,
     n_chunks: int = 1,
+    sketch: SketchSpec | None = None,
+    keep_latency: bool = False,
     draws: SimDraws | None = None,
 ) -> FleetResult:
     """Simulate ``n_seeds`` independent geo systems as one batched run.
@@ -285,46 +1114,63 @@ def simulate_fleet(
     The fleet axis is pure data parallelism: every seed draws its own
     workload, Madow service sets and service times (all seeds at once, on
     ``fabric.cluster.device``), then ONE (S, m)-wide FCFS scan walks all
-    seeds together. ``draws`` replaces the generator's draws, each with a
-    leading (S, N) axis and ``site_id`` set.
+    seeds together.
 
-    Not ported yet (ROADMAP.md queue A, A14): ``stream=True``,
-    ``n_chunks > 1``, ``cache_ttl`` and sharding seeds over several
-    devices; each raises ``NotImplementedError``.
+    ``cache_ttl`` (r,) puts one hot-tier cache (cold at t = 0) in front of
+    every seed's queues; hits return at ``cache_hit_latency`` and the
+    materialized result carries ``hit``. ``stream=True`` switches to the
+    streaming path: ``n_chunks`` blocks of ``n_requests`` each, one B1
+    launch a chunk from the carried state, folded into streaming
+    statistics (``FleetResult.stream``, per-chunk ``windows``, and
+    ``hit_count`` with a cache) with bin geometry ``sketch`` (default
+    :data:`~.streaming.DEFAULT_SKETCH`); ``keep_latency`` (validation)
+    also keeps the whole latency matrix. The warmup dropped is
+    ``drop_warmup`` of the whole horizon.
+
+    ``draws`` replace the generator's, each with a leading (S, N) axis and
+    ``site_id`` set; a streaming run takes a leading (W, S, N) chunk axis
+    (or (S, N) for one chunk). Sharding seeds over several CUDA devices is
+    not ported and raises ``NotImplementedError``.
     """
     if n_chunks < 1:
         raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
+    if n_chunks > 1 and not stream:
+        raise ValueError(
+            "chunked horizons (n_chunks > 1) require stream=True — the "
+            "materialized path would allocate the full horizon anyway"
+        )
+    if keep_latency and not stream:
+        raise ValueError("keep_latency only applies to stream=True runs")
     dev = fabric.cluster.device
-    unported = {
-        "stream=True": stream,
-        "n_chunks > 1": n_chunks > 1,
-        "cache_ttl": cache_ttl is not None,
-        "devices='auto' over several CUDA devices": (
-            devices == "auto" and dev.type == "cuda" and torch.cuda.device_count() > 1
-        ),
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"simulate_fleet({what}) is not ported yet (ROADMAP.md, queue A)"
-            )
+    if devices == "auto" and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "simulate_fleet over several CUDA devices is not ported; pass "
+            "devices='never' to run on one"
+        )
     pi = _on(pi, dev)
     lam_cs = _on(lam_cs, dev)
-    if draws is None:
-        _check_generator(generator, dev)
-        draws = _draw(generator, lam_cs, (n_seeds, n_requests), fabric.m)
-    elif draws.site_id is None:
+    if draws is not None and draws.site_id is None:
         raise ValueError("fleet draws need site_id")
     d, rates = fabric.service_params(chunk_mb)
-    service = d[draws.site_id] + draws.exp / rates[draws.site_id]
-    masks = madow_sample(draws.u, pi[draws.file_id])
-    # busy accrues in the scan's carry, not per step: an (S, N, m) busy
-    # output would dominate the kernel's memory traffic
-    latency, _, busy = fcfs_scan(draws.arrival, masks, service)
+    ttl = None if cache_ttl is None else _on(cache_ttl, dev)
+    hit_latency = _hit_latency(cache_hit_latency, dev)
+    if stream:
+        if draws is not None and draws.arrival.dim() == 2:
+            draws = SimDraws(*(None if x is None else x[None] for x in draws))
+        if draws is not None and draws.arrival.shape[0] != n_chunks:
+            raise ValueError(
+                f"draws hold {draws.arrival.shape[0]} chunks, n_chunks is {n_chunks}")
+        if draws is not None:
+            n_seeds, n_requests = draws.arrival.shape[1:]
+        sketch = DEFAULT_SKETCH if sketch is None else sketch
+        warm = int(n_requests * n_chunks * drop_warmup)
+        stats, windows, busy, hit_count, lats = _fleet_stream_batched(
+            generator, draws, pi, lam_cs, d, rates, ttl, hit_latency, n_seeds,
+            n_chunks, n_requests, warm, sketch, keep_latency)
+        return FleetResult(
+            latency=lats, file_id=None, site_id=None, node_busy=busy, hit=None,
+            stream=stats, windows=windows, hit_count=hit_count, sketch=sketch,
+        )
+    draws = _draws_for(generator, draws, lam_cs, (n_seeds, n_requests), fabric.m, False)
     warm = int(draws.arrival.shape[-1] * drop_warmup)
-    return FleetResult(
-        latency=latency[:, warm:],
-        file_id=draws.file_id[:, warm:],
-        site_id=draws.site_id[:, warm:],
-        node_busy=busy,
-    )
+    return FleetResult(*_fleet_one(draws, pi, d, rates, warm, ttl, hit_latency))

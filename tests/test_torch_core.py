@@ -447,12 +447,20 @@ def test_cuda_default_raises_without_a_card(monkeypatch):
 
 
 def test_simulate_fleet_unported_options_raise():
+    """The options that raised before the streaming fleet was ported now
+    run, or raise the reference's ValueError; sharding seeds over several
+    CUDA devices is the one left unported, and no CPU run reaches it."""
     fab = GeoFabric.single_site(tahoe_testbed(device="cpu"))
     pi = torch.full((2, M), 0.5)
     lam_cs = torch.full((1, 2), 0.01)
     g = torch.Generator().manual_seed(0)
-    for kw in ({"stream": True}, {"n_chunks": 2}, {"cache_ttl": torch.ones(2)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            simulate_fleet(g, pi, lam_cs, fab, 10.0, 100, 2, **kw)
+    streamed = simulate_fleet(g, pi, lam_cs, fab, 10.0, 100, 2, stream=True)
+    assert streamed.latency is None and int(streamed.stream.count.sum()) == 2 * 90
+    chunked = simulate_fleet(g, pi, lam_cs, fab, 10.0, 100, 2, stream=True, n_chunks=2)
+    assert chunked.windows.count.shape == (2, 2)
+    cached = simulate_fleet(g, pi, lam_cs, fab, 10.0, 100, 2, cache_ttl=torch.ones(2))
+    assert cached.hit.shape == (2, 90)
+    with pytest.raises(ValueError, match="require stream=True"):
+        simulate_fleet(g, pi, lam_cs, fab, 10.0, 100, 2, n_chunks=2)
     with pytest.raises(ValueError):
         simulate_fleet(g, pi, lam_cs, fab, 10.0, 100, 2, n_chunks=0)
