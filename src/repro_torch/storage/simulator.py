@@ -521,6 +521,19 @@ def _observations(serve: Tensor, service: Tensor) -> NodeObservations:
     )
 
 
+def _cache_prescan(expiry, t, file_id, ttl, masks):
+    """The hot tier in front of the queues: ``(new_expiry, hit, masks)``
+    with each hit's service set cleared. A missing ``expiry`` is a cold
+    cache (every file expired at -inf); without a ``ttl`` nothing hits and
+    ``hit`` is None."""
+    if ttl is None:
+        return expiry, None, masks
+    if expiry is None:
+        expiry = torch.full(ttl.shape[-1:], -torch.inf, device=ttl.device)
+    new_expiry, hit = ttl_cache_scan(expiry, t, file_id, ttl)
+    return new_expiry, hit, masks & ~hit[..., None]
+
+
 def _run_segment(
     carry: SimCarry,
     draws: SimDraws,
@@ -544,13 +557,8 @@ def _run_segment(
     arrival = carry.t0 + draws.arrival
     service = overheads + draws.exp / rates
     masks, degraded = dispatch_masks(draws.u, draws.prio, pi, draws.file_id, avail)
-    hit, serve, new_cache = None, masks, carry.cache
-    if ttl is not None:
-        expiry = carry.cache
-        if expiry is None:
-            expiry = torch.full(ttl.shape[-1:], -torch.inf, device=ttl.device)
-        new_cache, hit = ttl_cache_scan(expiry, arrival, draws.file_id, ttl)
-        serve = masks & ~hit[..., None]
+    new_cache, hit, serve = _cache_prescan(carry.cache, arrival, draws.file_id, ttl, masks)
+    if hit is not None:
         degraded = degraded & ~hit
     latency, dep, busy = _scan(arrival, serve, service, carry.dep)
     if hit is not None:
@@ -632,10 +640,7 @@ def simulate_segment(
     avail = torch.ones((m,), dtype=torch.bool, device=dev) if avail is None else _on(
         avail, dev, torch.bool)
     ttl = None if cache_ttl is None else _on(cache_ttl, dev)
-    if carry is None:
-        carry = init_carry(m, cache_files=None if ttl is None else ttl.shape[0], device=dev)
-    elif ttl is not None and carry.cache is None:
-        carry = carry._replace(cache=torch.full(ttl.shape, -torch.inf, device=dev))
+    carry = init_carry(m, device=dev) if carry is None else carry
     overheads = cluster.overheads() * _on(overhead_scale, dev)
     rates = cluster.bandwidths() * _on(bandwidth_scale, dev) / _on(chunk_mb, dev)
     lam_s = _on(lam, dev) * _on(rate_scale, dev)
@@ -740,9 +745,7 @@ def simulate_segments(
             cache_ttl_seq = cache_ttl_seq.expand((n_seg,) + tuple(cache_ttl_seq.shape))
     lam = _on(lam, dev)
     hit_latency = _hit_latency(cache_hit_latency, dev)
-    carry = init_carry(
-        m, cache_files=None if cache_ttl_seq is None else int(cache_ttl_seq.shape[-1]),
-        device=dev)
+    carry = init_carry(m, device=dev)
     results = []
     for s in range(n_seg):
         seg = _draws_for(generator, None if draws is None else draws.at(s),
@@ -1001,13 +1004,7 @@ def _fleet_inputs(draws: SimDraws, pi, overheads_cs, rates_cs, ttl=None, t0=None
     site = draws.site_id
     service = overheads_cs[site] + draws.exp / rates_cs[site]
     masks = madow_sample(draws.u, pi[draws.file_id])
-    hit, new_cache = None, cache
-    if ttl is not None:
-        expiry = cache
-        if expiry is None:
-            expiry = torch.full(ttl.shape[-1:], -torch.inf, device=ttl.device)
-        new_cache, hit = ttl_cache_scan(expiry, t, draws.file_id, ttl)
-        masks = masks & ~hit[..., None]
+    new_cache, hit, masks = _cache_prescan(cache, t, draws.file_id, ttl, masks)
     return t, draws.file_id, site, masks, service, hit, new_cache
 
 
@@ -1062,10 +1059,10 @@ def _fleet_stream_batched(
     ``materialize`` also keeps every block's latencies (validation).
     """
     dev = pi.device
-    s, m, r = n_seeds, overheads_cs.shape[-1], lam_cs.shape[-1]
+    s, m = n_seeds, overheads_cs.shape[-1]
     zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
     dep, busy, t0 = zeros(s, m), zeros(s, m), zeros(s)
-    cache = None if ttl is None else torch.full((s, r), -torch.inf, device=dev)
+    cache = None  # cold: the pre-scan starts every file expired
     stats = stream_init(sketch, (s,), device=dev)
     hit_count = None if ttl is None else torch.zeros((s,), dtype=torch.int32, device=dev)
     windows, lats = [], []
