@@ -169,6 +169,35 @@ Phases, each raising on failure:
        cache on a chunk.
    Phase 8's scans, each with its own carried ``dep0`` and ``busy0``, are
    stacked and held to the plain twin bitwise in one walk.
+9. The closed loop's control plane (``serving/router.py``, ``diag.py``):
+   9a. ``benchmarks/serving_hedge.py`` at its sizes (6 replicas, rates 0.15
+       and 0.6, hedge 0, 1, 2, 20 000 requests): each ``simulate_serving``
+       is one B1 launch at (m, N, m); p99 with hedge 1 must fall below
+       hedge 0's at low load; ``plan_sweep`` must equal single plans (bound
+       within 1e-3), ``precompute_failover`` then ``drop_replica`` a fresh
+       masked solve (pi within 1e-5), and a stale table must be ignored.
+   9b. ``benchmarks/replan_wall.py``'s equalities at its sizes (8 / 16 / 32
+       candidates, 2 / 4 draws at 16): ``batched_rollout_scores`` (one B1
+       launch) picks the sequential loop's argmin, every score within rtol
+       1e-5; the hoisted sweep's plans are bit-identical. Both walls are
+       printed side by side, not gated.
+   9c. Open check 3: a repair-aware ``AdaptiveReplanner`` (the repair flow,
+       the cache model, rollouts from the live carry) re-plans phase 8b's
+       schedule where availability changes, on 8b's draws; the clients'
+       mean in segments 2-4 must fall below the static plan's. Per segment:
+       the busiest node's utilisation, the clients' mean and p99, the
+       repair share; each replan's iterations and walls.
+   9d. ``HierarchicalReplanner`` at 10^6 files: the first replan full and
+       materialized, a quiet one a no-op, a surge re-solving only moved
+       clusters, a mask change a full solve.
+   9e. ``GeoAdaptiveReplanner`` over geo segments under a rotating client
+       mix, re-planned from EWMA (C, r) rates with batched geo rollouts; with
+       one draw its chosen index must equal the sequential loop's.
+   9f. Under ``REPRO_DIAG=1`` (in-process) 9c's first replan and two
+       ``simulate_fleet`` calls must raise nothing; inside ``diag.hot_path`` a
+       deliberate ``np.asarray`` of a CUDA tensor must raise
+       ``HostSyncError`` and ``float()`` of one the sync-debug error.
+   Phase 9's scans are held to the plain twin bitwise, stacked by (N, m).
 
 The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
 the card could take for the work: each input read once and each output
@@ -183,8 +212,9 @@ The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 8 (4b included) every launch count is set to 0 just before
-each main-path call (simulator, encode, decode, prefill) and read just after;
+In phases 3 to 9 (4b included) every launch count is set to 0 just before
+each main-path call (simulator, encode, decode, prefill, serving simulation,
+replan) and read just after;
 each call must have launched its kernel. Every kernel call those paths
 make is recorded, and its output is held against the plain twin on the
 same inputs, B1's with the carried state the call passed: bitwise for B1
@@ -202,6 +232,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -240,6 +271,7 @@ from repro_torch.core import (  # noqa: E402
     synthetic_catalog,
     volume_catalog,
 )
+from repro_torch import diag  # noqa: E402
 from repro_torch.core.jlcm import max_ec_problem, max_ec_report  # noqa: E402
 from repro_torch.kernels import fcfs_queue, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -258,6 +290,18 @@ from repro_torch.kernels.gf256_matmul import (  # noqa: E402
 from repro_torch.kernels.gf256_matmul import load_library as load_gf256  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    AdaptiveReplanner,
+    EwmaMomentEstimator,
+    EwmaRateEstimator,
+    GeoAdaptiveReplanner,
+    HierarchicalReplanner,
+    ReplicaPool,
+    Router,
+    batched_rollout_scores,
+    simulate_serving,
+)
+from repro_torch.serving import router as router_mod  # noqa: E402
 from repro_torch.storage import (  # noqa: E402
     DEFAULT_SKETCH,
     CacheModel,
@@ -270,11 +314,13 @@ from repro_torch.storage import (  # noqa: E402
     encode_batch,
     geo_testbed,
     homogeneous_cluster,
+    init_carry,
     lost_chunk_inventory,
     measured_fig6_moments,
     pad_and_split,
     run_segment_batch,
     run_segment_raw,
+    segment_draws,
     simulate,
     simulate_fleet,
     simulate_geo_segment,
@@ -360,6 +406,24 @@ SEG_DOWN, SEG_OUTAGE = (2, 5), 6  # node 0 down in segments 2-4; the hot tier ou
 REPAIR_SHARE_OF_CLIENT = 0.05 / sum((0.045, 0.035, 0.02, 0.015))
 CAND_AFTER, CANDIDATES, CAND_DRAWS = 4, 8, 4  # 8c: rollouts from the carry after segment 4
 STREAM_FLEET = dict(n_seeds=64, n_chunks=8, n_requests=100_000)  # 8e
+# phase 9: the control plane. 9a is benchmarks/serving_hedge.py at its sizes (6
+# replicas, its rates and hedge levels, 20 000 requests, key 5 as a seed),
+# with tests/test_serving.py:83's sweep; 9b benchmarks/replan_wall.py's (the
+# 12-node testbed, its LAM, k = 4 of 150 MB files, 600 requests, theta = 2,
+# candidates solved at 60 iterations, 8 / 16 / 32 candidates, 2 / 4 draws at
+# 16, a 32-point sweep); 9c re-plans phase 8b's schedule (solves of 150
+# iterations, rollouts of 20 000 requests x 2 draws from the live carry); 9d
+# runs phase 7a's 10^6-file catalog at HIER_SOLVE_KW; 9e geo_testbed() with
+# fleet_scale.py's files over 3 geo segments of SEGMENT_REQUESTS
+HEDGE_MU = (1.0, 1.2, 0.8, 1.5, 0.9, 1.1)
+HEDGE_RATES = dict(low=0.15, med=0.6)
+HEDGE_LEVELS, HEDGE_REQUESTS, HEDGE_SEED = (0, 1, 2), 20_000, 5
+SWEEP_THETAS = (0.0, 2.0)
+WALL_LAM = (0.030, 0.020, 0.015, 0.012, 0.010, 0.008)
+WALL_K, WALL_FILE_MB, WALL_REQUESTS, WALL_THETA, WALL_MAX_ITERS = 4.0, 150.0, 600, 2.0, 60
+WALL_CANDIDATES, WALL_DRAWS, WALL_SWEEP = (8, 16, 32), (2, 4), 32
+REPLAN_MAX_ITERS, REPLAN_ROLLOUT_REQUESTS, REPLAN_ROLLOUT_DRAWS = 150, 20_000, 2
+GEO_REPLAN_MAX_ITERS, GEO_ROLLOUT_REQUESTS, GEO_REPLAN_SEGMENTS = 100, 20_000, 3
 PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
@@ -1998,7 +2062,7 @@ def phase_segments(dev, aware, ttl, failed: list) -> tuple:
     if not bitwise_free:
         failed.append("8b: TTLs all zero differ from the cache-free run")
     sched = dict(pi_aug=pi_aug, lam_aug=lam_aug, avail_seq=avail_seq, rate_scale=rate_scale,
-                 ttl_seq=ttl_seq, eff=eff, carry=carry)
+                 ttl_seq=ttl_seq, eff=eff, carry=carry, draws=draws, static=res, flow=flow)
     return launches, calls + loop_calls, sched
 
 
@@ -2198,8 +2262,9 @@ def phase_stream_fleet(dev, aware, ttl, limits: dict, failed: list) -> tuple:
 def phase_closed_loop(dev, sol, geo_pi, geo_mean: float, limits: dict) -> tuple:
     """Phase 8: 8a-8e, then every B1 call of the phase held bitwise against
     the plain twin, each with its own carried state, in one stacked walk.
-    Returns B1's launches by path, the largest busy |difference| and B1's
-    record on a stream chunk."""
+    Returns B1's launches by path, the largest busy |difference|, B1's
+    record on a stream chunk, and what phase 9 re-plans on: 8a's cache model,
+    TTLs and plan, and 8b's schedule with its draws and static run."""
     t_phase = time.perf_counter()
     failed: list[str] = []
     model, ttl, aware = phase_cache_model(dev, sol, failed)
@@ -2214,14 +2279,437 @@ def phase_closed_loop(dev, sol, geo_pi, geo_mean: float, limits: dict) -> tuple:
     print(f"[8] fcfs launches {by_path} (8b {seg_launches}, 8c {cand_launches}, 8d "
           f"{geo_launches}, 8e {fleet_launches})")
     calls = seg_calls + cand_calls + geo_calls + fleet_calls
-    del seg_calls, cand_calls, geo_calls, fleet_calls, sched
+    del seg_calls, cand_calls, geo_calls, fleet_calls
     err = hold_stacked(calls, "8", "phase 8's scans, each with its carried state", dev)
     del calls
     torch.cuda.empty_cache()
     print(f"[8] phase 8 wall {time.perf_counter() - t_phase:.3f} s")
     if failed:
         raise AssertionError("phase 8 failed: " + "; ".join(failed))
-    return by_path, err, record
+    return by_path, err, record, dict(model=model, ttl=ttl, aware=aware, sched=sched)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the closed loop's control plane (the serving router's sweep,
+# failover and hedged simulation; batched rollout arbitration; the three
+# replanners; the hot-path guards).
+# ---------------------------------------------------------------------------
+
+
+def hold_grouped(calls, phase: str, dev) -> float:
+    """Every recorded scan held bitwise against the plain twin with its own
+    carried state, stacked by (N, m) so each shape is one plain-twin walk."""
+    groups: dict = {}
+    for call in calls:
+        groups.setdefault(tuple(call[0][2].shape[-2:]), []).append(call)
+    return max(hold_stacked(group, phase, f"scans of (N, m) = {shape}", dev)
+               for shape, group in sorted(groups.items()))
+
+
+@contextlib.contextmanager
+def diag_armed():
+    """``REPRO_DIAG=1`` for the region (set in-process), restored after."""
+    before = os.environ.get("REPRO_DIAG")
+    os.environ["REPRO_DIAG"] = "1"
+    try:
+        yield diag.hot_path_registry()
+    finally:
+        if before is None:
+            del os.environ["REPRO_DIAG"]
+        else:
+            os.environ["REPRO_DIAG"] = before
+
+
+def phase_serving(dev, failed: list) -> tuple:
+    """9a: benchmarks/serving_hedge.py at its sizes, each simulate_serving one
+    B1 launch at (m, N, m); plan_sweep against single plans; the failover
+    table against a fresh masked solve, and a stale table ignored."""
+    mu = on_card(HEDGE_MU, dev)
+    m = len(HEDGE_MU)
+    pool = ReplicaPool(moments=exponential_moments(mu), cost=torch.ones(m, device=dev))
+    sampler = lambda g, shape: torch.empty(shape + (m,), device=dev).exponential_(generator=g) / mu
+    launches, calls, plans, p99 = 0, [], {}, {}
+    for load, rate in HEDGE_RATES.items():
+        # the plan does not depend on hedge (it only widens each request's
+        # set), so one solve a rate serves the three hedge levels
+        wall, plans[load] = best_wall(lambda: Router.plan(pool, [rate]), reps=1)
+        print(f"[9a] Router.plan at rate {rate}: bound {plans[load].latency_bound:.4f} s, "
+              f"wall {wall:.3f} s")
+        for hedge in HEDGE_LEVELS:
+            router = dataclasses.replace(plans[load], hedge=hedge)
+            gen = torch.Generator(device=dev).manual_seed(HEDGE_SEED)
+            with recorded(router_mod, "fcfs_scan") as c:
+                sim_wall, ((lat, _), n) = best_wall(lambda: counted(
+                    f"9a simulate_serving {load} hedge {hedge}", lambda: simulate_serving(
+                        gen, router, [rate], sampler, HEDGE_REQUESTS)), reps=1)
+            launches += n
+            calls += c
+            p99[load, hedge] = float(np.quantile(lat, 0.99))
+            print(f"[9a] {load} load (rate {rate}), hedge {hedge}: mean {lat.mean():.4f} s, p99 "
+                  f"{p99[load, hedge]:.4f} s ({lat.size} requests after warm-up); B1 "
+                  f"{n} launch at {tuple(c[-1][0][1].shape)}, wall {sim_wall:.3f} s")
+    if not p99["low", 1] < p99["low", 0]:
+        failed.append(f"9a: hedging does not cut p99 at low load {p99}")
+    rate = HEDGE_RATES["low"]
+    wall, sweep = best_wall(lambda: Router.plan_sweep(pool, [rate], SWEEP_THETAS), reps=1)
+    singles = [plans["low"]] + [Router.plan(pool, [rate], theta=t) for t in SWEEP_THETAS[1:]]
+    rel = [abs(a.latency_bound - b.latency_bound) / abs(b.latency_bound)
+           for a, b in zip(sweep, singles)]
+    print(f"[9a] plan_sweep over thetas {SWEEP_THETAS} at rate {rate} (one solve_batch, "
+          f"{wall:.3f} s): bounds {[round(x.latency_bound, 5) for x in sweep]}, single plans "
+          f"{[round(x.latency_bound, 5) for x in singles]} (rel diff {max(rel):.3g}, limit 1e-3)")
+    if not max(rel) <= 1e-3:
+        failed.append(f"9a: plan_sweep differs from single plans by {rel}")
+    base = plans["low"]
+    table_wall, table = best_wall(lambda: base.precompute_failover([rate]), reps=1)
+    lookup_wall, from_table = best_wall(lambda: table.drop_replica(0, [rate]), reps=1)
+    fresh_wall, fresh = best_wall(lambda: base.drop_replica(0, [rate]), reps=1)
+    pi_diff = float(np.abs(from_table.pi - fresh.pi).max())
+    bound_rel = abs(from_table.latency_bound - fresh.latency_bound) / fresh.latency_bound
+    stale = table.drop_replica(3, [HEDGE_RATES["med"]])
+    stale_ok = bool((stale.pi[:, 3] <= 1e-6).all()) and not np.allclose(
+        stale.pi, table.failover[3][0], atol=1e-6)
+    print(f"[9a] failover: table of {len(table.failover)} masked plans in one solve_batch "
+          f"{table_wall:.3f} s; drop_replica(0) from the table {1e3 * lookup_wall:.3f} ms vs a "
+          f"fresh masked solve {fresh_wall:.3f} s: pi max |diff| {pi_diff:.3g} (limit 1e-5), "
+          f"bound rel diff {bound_rel:.3g} (limit 1e-5), table dropped after use "
+          f"{from_table.failover == {}}; a stale table (rate {HEDGE_RATES['med']}) is ignored: "
+          f"{stale_ok}")
+    if not (pi_diff <= 1e-5 and bound_rel <= 1e-5 and from_table.failover == {}
+            and bool((from_table.pi[:, 0] <= 1e-6).all())):
+        failed.append(f"9a: the failover table differs from a fresh solve ({pi_diff}, {bound_rel})")
+    if not stale_ok:
+        failed.append("9a: drop_replica served a stale failover table")
+    return launches, calls
+
+
+def phase_replan_wall(dev, failed: list) -> tuple:
+    """9b: benchmarks/replan_wall.py's equalities at its sizes: the batched
+    argmin equals the sequential loop's and every score agrees within fp32
+    tolerance, at 8 / 16 / 32 candidates and 2 / 4 draws; the hoisted
+    sweep's plans are bit-identical. Walls of both paths printed side by
+    side, not gated."""
+    cl = tahoe_testbed(device=dev)
+    r, chunk = len(WALL_LAM), WALL_FILE_MB / WALL_K
+    d, rates = cl.service_params(chunk)
+    lam = on_card(WALL_LAM, dev)
+    avail = torch.ones(NODES, dtype=torch.bool, device=dev)
+    carry = init_carry(NODES, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def candidates(n_cand: int):  # replan_wall.py's fan of demand scales
+        return solve_batch([JLCMProblem(
+            lam=on_card(np.asarray(WALL_LAM) * s, dev), k=torch.full((r,), WALL_K, device=dev),
+            moments=cl.moments(chunk), cost=cl.cost, theta=WALL_THETA)
+            for s in np.linspace(0.8, 1.2, n_cand)], max_iters=WALL_MAX_ITERS)
+
+    def sequential(pi, draws, cost_term):  # replan_wall.py's _sequential_best, per draw
+        scores = np.zeros((draws.arrival.shape[0], cost_term.size))
+        for j in range(scores.shape[0]):
+            for i in range(cost_term.size):
+                _, res = run_segment_raw(carry, None, pi[i], lam, d, rates, avail,
+                                         WALL_REQUESTS, draws=draws.at(j))
+                lat, fid = res.latency.cpu().numpy(), res.file_id.cpu().numpy()
+                ok = fid < r  # repair rows masked
+                scores[j, i] = empirical_objective(lat[ok], fid[ok], None) + float(cost_term[i])
+        return scores.mean(0), int(np.argmin(scores.mean(0)))
+
+    launches, calls = 0, []
+    for n_cand, n_draws in [(c, 1) for c in WALL_CANDIDATES] + [(16, k) for k in WALL_DRAWS]:
+        sols = candidates(n_cand)
+        cost_term = WALL_THETA * sols.cost.cpu().numpy()
+        cost_dev = WALL_THETA * sols.cost
+        draws = segment_draws(gen, lam[None], WALL_REQUESTS, NODES, n_draws)
+        batched = lambda: batched_rollout_scores(
+            carry, None, sols.pi, lam, d, rates, avail, cost_dev, None, n_clients=r,
+            n_requests=WALL_REQUESTS, rollout_seeds=n_draws, draws=draws)
+        with recorded(simulator, "fcfs_scan") as c:
+            (scores, best), nb = counted(f"9b batched_rollout_scores {n_cand}x{n_draws}", batched)
+            (seq, seq_best), ns = counted(f"9b sequential loop {n_cand}x{n_draws}",
+                                          lambda: sequential(sols.pi, draws, cost_term))
+        launches += nb + ns
+        calls += c
+        scores = scores.cpu().numpy()
+        close = np.allclose(scores[:n_cand], seq, rtol=1e-5, atol=1e-5)
+        t_bat, _ = best_wall(lambda: int(batched()[1]), reps=3)
+        t_seq, _ = best_wall(lambda: sequential(sols.pi, draws, cost_term)[1], reps=3)
+        print(f"[9b] {n_cand} candidates x {n_draws} draw(s) x {WALL_REQUESTS} requests: batched "
+              f"argmin {int(best)} (B1 {nb} launch at {tuple(c[0][0][1].shape)}), sequential "
+              f"{seq_best} ({ns} launches); scores within rtol 1e-5: {close} (max rel "
+              f"{float(np.max(np.abs(scores[:n_cand] - seq) / np.abs(seq))):.3g}); padded to "
+              f"{scores.size}; walls: batched {1e3 * t_bat:.2f} ms, sequential "
+              f"{1e3 * t_seq:.2f} ms ({t_seq / t_bat:.2f}x, best of 3)")
+        if int(best) != seq_best or not close or nb != 1:
+            failed.append(f"9b {n_cand}x{n_draws}: batched {int(best)} vs sequential {seq_best}, "
+                          f"scores close {close}, {nb} launches")
+    sweep_sols = candidates(WALL_SWEEP)
+    legacy = lambda: [(sweep_sols.pi[i].cpu().numpy(), float(sweep_sols.latency_tight[i]))
+                      for i in range(WALL_SWEEP)]
+
+    def hoisted():
+        pi_np, lat_np = sweep_sols.pi.cpu().numpy(), sweep_sols.latency_tight.cpu().numpy()
+        return [(pi_np[i], float(lat_np[i])) for i in range(WALL_SWEEP)]
+
+    t_hoist, out_h = best_wall(hoisted, reps=3)
+    t_legacy, out_l = best_wall(legacy, reps=3)
+    same = all(np.array_equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(out_h, out_l))
+    print(f"[9b] the hoisted sweep's {WALL_SWEEP} plans are bit-identical to per-index reads: "
+          f"{same}; walls: hoisted {1e3 * t_hoist:.3f} ms, per index {1e3 * t_legacy:.3f} ms")
+    if not same:
+        failed.append("9b: the hoisted sweep differs from per-index reads")
+    return launches, calls
+
+
+def client_stats(res, r: int, s: int) -> tuple[float, float]:
+    """Segment ``s``'s clients' (file id < r) mean and p99 latency."""
+    lat = res.latency[s][res.file_id[s] < r]
+    return float(lat.mean()), float(torch.quantile(lat, 0.99))
+
+
+def phase_repair_replan(dev, loop: dict, failed: list) -> tuple:
+    """9c (and 9f's replan): the repair-aware AdaptiveReplanner against 8b's
+    static plan on 8b's schedule and draws: it re-plans where availability
+    changes, with the repair flow, the cache model and rollouts from the live
+    carry; the first replan runs under REPRO_DIAG=1. Gate: the clients' mean
+    in the outage below the static plan's."""
+    cl = tahoe_testbed(device=dev)
+    lam, ks, lam_np, ks_np, chunk, eff = catalog_inputs(dev)
+    model, ttl, aware, sched = loop["model"], loop["ttl"], loop["aware"], loop["sched"]
+    r, n = len(lam_np), SEGMENT_REQUESTS
+    lam64 = lam_np.astype(np.float64)
+    flow, draws, static = sched["flow"], sched["draws"], sched["static"]
+    est = EwmaMomentEstimator(prior=cl.moments(eff))
+    rate_est = EwmaRateEstimator(prior=model.thin(lam64))
+    rp = AdaptiveReplanner(k=ks_np, cost=cl.cost.cpu().numpy(), theta=2.0, estimator=est,
+                           cache=model, max_iters=REPLAN_MAX_ITERS,
+                           rollout_requests=REPLAN_ROLLOUT_REQUESTS,
+                           rollout_seeds=REPLAN_ROLLOUT_DRAWS)
+    rp.last_ttl, rp.last_raw = ttl, lam64.copy()
+    gen = torch.Generator(device=dev).manual_seed(90)
+    pi_client, repair_pi, ttl_cur, carry = aware.pi.cpu().numpy(), flow.pi, ttl, None
+    launches, calls, parts, guarded = {"replan": 0, "segments": 0}, [], [], {}
+    for s in range(SEGMENTS):
+        avail = sched["avail_seq"][s]
+        if s in SEG_DOWN:  # availability changes: re-plan before the segment
+            active = s < SEG_DOWN[1]
+            armed = diag_armed() if s == SEG_DOWN[0] else contextlib.nullcontext({})
+            with recorded(simulator, "fcfs_scan") as c, armed as reg:
+                before = {k: v.guarded_calls for k, v in reg.items()}
+                pi_client, nl = counted(f"9c replan before segment {s}", lambda: rp.replan(
+                    rate_est.rates, avail, pi0=pi_client, carry=carry, generator=gen,
+                    repair=flow if active else None))
+                guarded.update({k: v.guarded_calls - before.get(k, 0) for k, v in reg.items()
+                                if v.guarded_calls > before.get(k, 0)})
+            launches["replan"] += nl
+            calls += c
+            repair_pi = rp.repair_pi if active else flow.pi
+            ttl_cur = rp.last_ttl
+            print(f"[9c] replan before segment {s} ({'node 0 down, repair on' if active else 'node 0 back'}"
+                  f"{', under REPRO_DIAG=1' if s == SEG_DOWN[0] else ''}): {len(rp.last_scores)} "
+                  f"candidates, iterations {rp.solve_iters[-1]}, solve {rp.solve_walls[-1]:.3f} s, "
+                  f"rollouts {rp.rollout_walls[-1]:.3f} s (B1 {nl} launch at "
+                  f"{tuple(c[-1][0][1].shape)}), scores {np.round(rp.last_scores.tolist(), 3).tolist()}")
+        pi_s = np.concatenate([pi_client, repair_pi])
+        ttl_s = sched["ttl_seq"][s] if s == SEG_OUTAGE else np.concatenate([ttl_cur, np.zeros(r)])
+        with recorded(simulator, "fcfs_scan") as c:
+            (res, carry), nl = counted("9c simulate_segment", lambda: simulate_segment(
+                None, pi_s, sched["lam_aug"], cl, eff, n, avail=avail,
+                rate_scale=sched["rate_scale"][s], carry=carry, cache_ttl=ttl_s,
+                cache_hit_latency=CACHE_HIT_LATENCY, draws=draws.at(s)))
+        launches["segments"] += nl
+        calls += c
+        parts.append(res)
+        est.update(res.obs)
+        client = res.file_id < r
+        rate_est.update_misses(res.file_id[client], res.hit[client],
+                               float(res.arrival[-1] - res.arrival[0]))
+    adaptive = simulator._stack(parts)
+    span = torch.diff(static.t_end, prepend=static.t_end.new_zeros(1))
+    util = {name: (x.node_busy / span[:, None]).amax(-1).tolist()
+            for name, x in (("static", static), ("adaptive", adaptive))}
+    share = ((static.file_id >= r).sum(-1) / n).tolist()
+    for s in range(SEGMENTS):
+        (sm, sp), (am, ap) = client_stats(static, r, s), client_stats(adaptive, r, s)
+        print(f"[9c] segment {s}: repair share {share[s]:.5f}; busiest node's utilisation "
+              f"static {util['static'][s]:.4f}, adaptive {util['adaptive'][s]:.4f}; clients' "
+              f"mean / p99 static {sm:.6g} / {sp:.6g} s, adaptive {am:.6g} / {ap:.6g} s")
+    down = slice(*SEG_DOWN)
+    out = {name: float(x.latency[down][x.file_id[down] < r].mean())
+           for name, x in (("static", static), ("adaptive", adaptive))}
+    print(f"[9c] clients' mean in segments {SEG_DOWN[0]}..{SEG_DOWN[1] - 1}: adaptive "
+          f"{out['adaptive']:.6g} s, static {out['static']:.6g} s; replans {rp.replans}, solve "
+          f"walls {np.round(rp.solve_walls, 3).tolist()} s, rollout walls "
+          f"{np.round(rp.rollout_walls, 3).tolist()} s; guarded calls under REPRO_DIAG=1 {guarded}")
+    if not out["adaptive"] < out["static"]:
+        failed.append(f"9c: the repair-aware plan's clients' mean {out['adaptive']} is not below "
+                      f"the static plan's {out['static']}")
+    if not (guarded.get("core.solve_merged", 0) >= 1
+            and guarded.get("serving.batched_rollout_scores", 0) == 1):
+        failed.append(f"9f: the replan under REPRO_DIAG=1 ran no guarded region {guarded}")
+    return launches, calls
+
+
+def phase_hier_replan(dev, failed: list) -> None:
+    """9d: HierarchicalReplanner at 10^6 files (phase 7a's catalog at
+    jlcm_scaling.py's SOLVE_KW): the first replan full and materialized, a
+    quiet segment an incremental no-op, a rate surge re-solving only the
+    clusters that moved, a mask change forcing a full solve."""
+    cl = tahoe_testbed(device=dev)
+    cat = synthetic_catalog(HIER_FILES)
+    h = cluster_catalog(cat)
+    mom = cl.moments(effective_chunk_mb(h))
+    rp = HierarchicalReplanner(hierarchy=h, cost=cl.cost.cpu().numpy(), theta=PLAN_THETA,
+                               estimator=EwmaMomentEstimator(prior=mom),
+                               max_iters=HIER_SOLVE_KW["max_iters"], eps=HIER_SOLVE_KW["eps"])
+    avail = np.ones(NODES, bool)
+    pi1 = rp.replan(cat.lam, avail)
+    ok = [pi1.shape == (HIER_FILES, NODES), rp.full_solves == 1,
+          rp.resolved_counts == [h.n_clusters], np.allclose(pi1.sum(-1), cat.k, rtol=1e-3)]
+    pi2 = rp.replan(cat.lam, avail)
+    ok += [rp.full_solves == 1, rp.resolved_counts[-1] == 0, np.array_equal(pi1, pi2)]
+    cid = h.cluster_of_file()
+    surge = cat.lam.copy()
+    surge[cid == int(np.argmax(h.lam))] *= 3.0
+    rp.replan(surge, avail)
+    ok += [rp.full_solves == 1, 1 <= rp.resolved_counts[-1] < h.n_clusters]
+    down = avail.copy()
+    down[0] = False
+    pi4 = rp.replan(surge, down)
+    ok += [rp.full_solves == 2, bool(np.abs(pi4[:, 0]).max() <= 1e-6)]
+    print(f"[9d] HierarchicalReplanner over {HIER_FILES} files in {h.n_clusters} clusters: "
+          f"first (full), quiet, one cluster x3, node 0 down: resolved_counts "
+          f"{rp.resolved_counts}, full solves {rp.full_solves}, iterations {rp.solve_iters}, walls "
+          f"{np.round(rp.solve_walls, 3).tolist()} s (each with the materialized "
+          f"({HIER_FILES}, {NODES}) plan's host copy); contracts hold: {all(ok)} {ok}")
+    if not all(ok):
+        failed.append(f"9d: hierarchical contracts {ok}, counts {rp.resolved_counts}")
+
+
+def phase_geo_replan(dev, geo_pi, failed: list) -> tuple:
+    """9e: GeoAdaptiveReplanner on geo_testbed() with fleet_scale.py's files:
+    geo segments under a rotating client mix, re-planned from the EWMA (C, r)
+    rate estimates with batched geo rollouts (one B1 launch); with one draw
+    the chosen index equals the sequential loop's on the same draws."""
+    fabric = geo_testbed(tahoe_testbed(device=dev))
+    c, lam, mix = fabric.n_sites, np.asarray(GEO_LAM), np.asarray(GEO_MIX)
+    r = lam.size
+    est = EwmaMomentEstimator(prior=fabric.moments(PLAN_CHUNK_MB))
+    rate_est = EwmaRateEstimator(prior=(mix[:, None] * lam[None, :]).ravel())
+    kw = dict(k=np.asarray(PLAN_K), cost=fabric.cluster.cost.cpu().numpy(), theta=PLAN_THETA,
+              estimator=est, max_iters=GEO_REPLAN_MAX_ITERS,
+              rollout_requests=GEO_ROLLOUT_REQUESTS)
+    rp, seq = GeoAdaptiveReplanner(**kw), GeoAdaptiveReplanner(rollout_batched=False, **kw)
+    gen = torch.Generator(device=dev).manual_seed(91)
+    avail = np.ones(NODES, bool)
+    pi, carry, launches, calls, means = geo_pi, None, 0, [], []
+    for s in range(GEO_REPLAN_SEGMENTS):
+        lam_cs = np.roll(mix, s)[:, None] * lam[None, :]
+        if s > 0:
+            lam_hat, pi_before = rate_est.rates.reshape(c, r), pi
+            draws = segment_draws(gen, on_card(lam_hat, dev), GEO_ROLLOUT_REQUESTS, NODES, 1)
+            with recorded(simulator, "fcfs_scan") as cc:
+                pi, nl = counted(f"9e geo replan before segment {s}", lambda: rp.replan(
+                    lam_hat, avail, pi0=pi_before, carry=carry, draws=draws))
+                launches += nl
+                line = (f"[9e] replan before segment {s}: {len(rp.last_scores)} candidates, "
+                        f"iterations {rp.solve_iters[-1]}, solve {rp.solve_walls[-1]:.3f} s, "
+                        f"rollouts {rp.rollout_walls[-1]:.3f} s (B1 {nl} launch at "
+                        f"{tuple(cc[-1][0][1].shape)})")
+                if s == 1:  # the sequential loop on the same candidates and draws
+                    pi_seq, ns = counted("9e sequential geo replan", lambda: seq.replan(
+                        lam_hat, avail, pi0=pi_before, carry=carry, draws=draws))
+                    launches += ns
+                    same = int(np.argmin(seq.last_scores)) == int(torch.argmin(rp.last_scores))
+                    line += (f"; sequential loop ({ns} launches): chosen index "
+                             f"{int(np.argmin(seq.last_scores))} vs batched "
+                             f"{int(torch.argmin(rp.last_scores))}, equal {same}, plans bitwise "
+                             f"{np.array_equal(pi, pi_seq)}")
+                    if not same:
+                        failed.append("9e: the batched geo argmin differs from the sequential loop's")
+            calls += cc
+            print(line)
+        with recorded(simulator, "fcfs_scan") as cc:
+            (res, carry), nl = counted("9e simulate_geo_segment", lambda: simulate_geo_segment(
+                gen, pi, lam_cs, fabric, PLAN_CHUNK_MB, SEGMENT_REQUESTS, carry=carry))
+        launches += nl
+        calls += cc
+        est.update(res.obs)
+        rate_est.update(res.site_id * r + res.file_id, float(res.arrival[-1] - res.arrival[0]))
+        means.append(float(res.latency.mean()))
+    print(f"[9e] geo segments under the client mix rotating one site a segment: mean latency "
+          f"{np.round(means, 3).tolist()} s; estimated (C, r) rates after the last segment "
+          f"{np.round(rate_est.rates.reshape(c, r), 5).tolist()}")
+    if not all(np.isfinite(means)):
+        failed.append(f"9e: geo segment means {means}")
+    return launches, calls
+
+
+def phase_guards(dev, loop: dict, failed: list) -> tuple:
+    """9f: simulate_fleet under REPRO_DIAG=1 (materialized and streaming, with
+    the cache) raises nothing; a deliberate np.asarray or float() of a CUDA
+    tensor inside hot_path raises."""
+    cl = tahoe_testbed(device=dev)
+    lam, ks, lam_np, ks_np, chunk, eff = catalog_inputs(dev)
+    fabric = GeoFabric.single_site(cl)
+    ttl_t = on_card(loop["ttl"], dev)
+    gen = torch.Generator(device=dev).manual_seed(92)
+    launches, calls = 0, []
+    with diag_armed() as reg, recorded(simulator, "fcfs_scan") as c:
+        before = reg["storage.simulate_fleet"].guarded_calls
+        for stream in (False, True):
+            fleet, nl = counted(f"9f simulate_fleet stream={stream}", lambda: simulate_fleet(
+                gen, loop["aware"].pi, lam[None], fabric, eff, PLAN_FLEET["n_requests"],
+                PLAN_FLEET["n_seeds"], cache_ttl=ttl_t, cache_hit_latency=CACHE_HIT_LATENCY,
+                stream=stream, n_chunks=2 if stream else 1))
+            launches += nl
+            print(f"[9f] simulate_fleet (stream={stream}) under REPRO_DIAG=1: mean "
+                  f"{float(fleet.mean_latency()):.4f} s, B1 {nl} launch(es), raised nothing")
+        fleet_guarded = reg["storage.simulate_fleet"].guarded_calls - before
+        x = torch.arange(4.0, device=dev)
+        caught = []
+        for name, fn in (("np.asarray", lambda: np.asarray(x)), ("float", lambda: float(x[0]))):
+            try:
+                with diag.hot_path("chip_smoke.deliberate"):
+                    fn()
+                caught.append(f"{name}: nothing raised")
+            except diag.HostSyncError as err:
+                caught.append(f"{name}: HostSyncError ({str(err)[:40]}...)")
+            except RuntimeError as err:  # the CUDA sync-debug mode
+                caught.append(f"{name}: RuntimeError ({str(err)[:60]}...)")
+    calls += c
+    print(f"[9f] guarded simulate_fleet calls {fleet_guarded}; deliberate syncs inside hot_path: "
+          f"{caught}; sync-debug mode after the guards {torch.cuda.get_sync_debug_mode()}")
+    if not (fleet_guarded == 2 and caught[0].startswith("np.asarray: HostSyncError")
+            and caught[1].startswith("float: RuntimeError")
+            and torch.cuda.get_sync_debug_mode() == 0):
+        failed.append(f"9f: guards {caught}, {fleet_guarded} guarded fleets")
+    return launches, calls
+
+
+def phase_control_plane(dev, geo_pi, loop: dict) -> tuple:
+    """Phase 9: 9a-9f, then every B1 call of the phase held bitwise against
+    the plain twin with its own carried state, grouped by (N, m). Returns
+    B1's launches by path and the largest busy |difference|."""
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    serve_launches, serve_calls = phase_serving(dev, failed)
+    wall_launches, wall_calls = phase_replan_wall(dev, failed)
+    repair_launches, repair_calls = phase_repair_replan(dev, loop, failed)
+    phase_hier_replan(dev, failed)
+    geo_launches, geo_calls = phase_geo_replan(dev, geo_pi, failed)
+    guard_launches, guard_calls = phase_guards(dev, loop, failed)
+    by_path = {"serving_simulate_serving": serve_launches,
+               "replan_wall_rollouts": wall_launches,
+               "repair_replan_segments_and_rollouts": sum(repair_launches.values()),
+               "geo_replan_segments_and_rollouts": geo_launches,
+               "diag_simulate_fleet": guard_launches}
+    print(f"[9] fcfs launches {by_path} (9c {repair_launches})")
+    err = hold_grouped(serve_calls + wall_calls + repair_calls + geo_calls + guard_calls, "9", dev)
+    torch.cuda.empty_cache()
+    print(f"[9] phase 9 wall {time.perf_counter() - t_phase:.3f} s")
+    if failed:
+        raise AssertionError("phase 9 failed: " + "; ".join(failed))
+    return by_path, err
 
 
 def main() -> int:
@@ -2252,14 +2740,17 @@ def main() -> int:
     fleets_err = hold_stacked(hier_calls + geo_calls, "7", "7a and 7c fleets", dev)
     del hier_calls, geo_calls
     print(f"[7] phase 7 wall {time.perf_counter() - t7:.3f} s")
-    closed_by_path, closed_err, chunk = phase_closed_loop(dev, sol, geo_pi, geo_mean, limits)
+    closed_by_path, closed_err, chunk, loop = phase_closed_loop(dev, sol, geo_pi, geo_mean, limits)
+    control_by_path, control_err = phase_control_plane(dev, geo_pi, loop)
+    del loop
     by_path = {"quickstart_simulate": quick_launches,
                "catalog_simulate_fleet": fleet_launches,
                "figures_simulate": figure_launches,
                "hierarchical_simulate_fleet": hier_launches,
                "tenant_simulate": tenant_launches,
                "geo_simulate_fleet": geo_launches,
-               **closed_by_path}
+               **closed_by_path,
+               **control_by_path}
     kernels = [{
         "name": "fcfs_scan",
         "route": "cuda",
@@ -2269,7 +2760,7 @@ def main() -> int:
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "max_abs_err": max(worst, quick_err, record["max_abs_err"], figure_err,
-                           tenant_err, fleets_err, closed_err),
+                           tenant_err, fleets_err, closed_err, control_err),
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
         "bound_ms": record["bound_ms"],

@@ -44,6 +44,8 @@ from typing import NamedTuple, Sequence
 import torch
 from torch import Tensor
 
+from repro_torch import diag
+
 from .geo import GeoSpec, geo_eq_varq
 from .latency_bound import file_latency_bounds
 from .objectives import (
@@ -239,7 +241,9 @@ def _merged_loop(
     (the reference's vmapped ``while_loop``). The three step sizes are all
     evaluated and selected on the device with the reference's precedence,
     so the backtracking needs no host sync; the stop test, ``done.all()``,
-    costs the loop one host sync per iteration.
+    costs the loop one host sync per iteration. Each iteration's body runs
+    under ``diag.hot_path("core.solve_merged")``, the stop test outside it
+    (the reference syncs once a solve, after its ``while_loop``).
 
     Returns (pi, z, trace, iterations): trace (..., T + 1) over the T
     iterations the loop ran, NaN past each instance's last one; iterations
@@ -262,37 +266,40 @@ def _merged_loop(
         return p, zz, smoothed_objective(p, zz, prob, beta)
 
     for _ in range(max_iters):
-        g = _merged_grad(pi, z, prob, beta)
-        first = attempt(lr)
-        second = attempt(lr / 4.0)
-        third = attempt(lr / 16.0)
-        bound = prev + BACKTRACK_SLACK
-        take_first = ~(first[2] > bound)
-        take_second = ~(second[2] > bound)
-        cand = [
-            _select(take_first, a, _select(take_second, b, c))
-            for a, b, c in zip(first, second, third)
-        ]
-        accepted = cand[2] <= bound
-        active = ~done
-        moved = accepted & active
-        pi = _select(moved, cand[0], pi)
-        z = torch.where(moved, cand[1], z)
-        obj = torch.where(accepted, cand[2], prev)  # stalled step keeps prev
-        # a rejected round already probed {lr, lr/4, lr/16}, so shrinking
-        # 16x continues the geometric /4 probe grid with nothing skipped
-        lr_n = torch.where(accepted, torch.minimum(lr * 1.1, lr_cap), lr / 16.0)
-        collapsed = ~accepted & (lr_n <= lr_cap * 1e-6)
-        # relative stopping rule; a rejected step only stops once lr has
-        # collapsed, otherwise it shrinks lr and retries
-        converged = accepted & (
-            torch.abs(prev - obj) < eps * torch.clamp_min(torch.abs(obj), 1.0)
-        )
-        prev = torch.where(active, obj, prev)
-        lr = torch.where(active, lr_n, lr)
-        trace.append(torch.where(active, obj, torch.nan))
-        iterations += active
-        done = done | collapsed | converged
+        # the iteration's device body is a guarded hot path; the stop test
+        # below, the iteration's one host sync, stays outside it
+        with diag.hot_path("core.solve_merged"):
+            g = _merged_grad(pi, z, prob, beta)
+            first = attempt(lr)
+            second = attempt(lr / 4.0)
+            third = attempt(lr / 16.0)
+            bound = prev + BACKTRACK_SLACK
+            take_first = ~(first[2] > bound)
+            take_second = ~(second[2] > bound)
+            cand = [
+                _select(take_first, a, _select(take_second, b, c))
+                for a, b, c in zip(first, second, third)
+            ]
+            accepted = cand[2] <= bound
+            active = ~done
+            moved = accepted & active
+            pi = _select(moved, cand[0], pi)
+            z = torch.where(moved, cand[1], z)
+            obj = torch.where(accepted, cand[2], prev)  # stalled step keeps prev
+            # a rejected round already probed {lr, lr/4, lr/16}, so shrinking
+            # 16x continues the geometric /4 probe grid with nothing skipped
+            lr_n = torch.where(accepted, torch.minimum(lr * 1.1, lr_cap), lr / 16.0)
+            collapsed = ~accepted & (lr_n <= lr_cap * 1e-6)
+            # relative stopping rule; a rejected step only stops once lr has
+            # collapsed, otherwise it shrinks lr and retries
+            converged = accepted & (
+                torch.abs(prev - obj) < eps * torch.clamp_min(torch.abs(obj), 1.0)
+            )
+            prev = torch.where(active, obj, prev)
+            lr = torch.where(active, lr_n, lr)
+            trace.append(torch.where(active, obj, torch.nan))
+            iterations += active
+            done = done | collapsed | converged
         if bool(done.all()):  # the one host sync per iteration
             break
     return pi, z, torch.stack(trace, dim=-1), iterations

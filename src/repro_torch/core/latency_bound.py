@@ -160,7 +160,10 @@ def tail_probability_bounds(
         # the search runs ~13 small ops a step: both probes in one pass
         # over (2, ..., r, m), sqrt(x^2 + Var) as hypot(x, sd)
         sd = torch.sqrt(varq)
-        toward = torch.tensor([-INVPHI, INVPHI], dtype=pi.dtype, device=pi.device)
+        # built on the device (no host copy: the solver's iterations are a
+        # guarded hot path, diag.py)
+        toward = torch.stack([torch.full((), v, dtype=pi.dtype, device=pi.device)
+                              for v in (-INVPHI, INVPHI)])
         toward = toward.reshape((2,) + (1,) * lo.dim())
         for _ in range(iters):
             probes = torch.stack((hi, lo)) + toward * (hi - lo)  # (a, b)

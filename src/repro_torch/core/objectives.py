@@ -408,9 +408,9 @@ def empirical_objective_device(
     spec: ObjectiveSpec | None,
     valid: Tensor | None = None,
 ) -> Tensor:
-    """The composed objective on one simulated latency stream (N,), where
+    """The composed objective on a simulated latency stream (..., N), where
     the stream lives (no host round trip): the device twin of
-    :func:`empirical_objective`.
+    :func:`empirical_objective`, one score per stream of the leading axes.
 
     ``valid`` masks requests out of the statistic. Per-class exceedance
     follows the host contract: a class with no (valid) request contributes
@@ -423,17 +423,17 @@ def empirical_objective_device(
     )
     lat = torch.where(vf > 0, latency, 0.0)  # keep masked +-inf out of sums
     if spec is None:
-        return torch.sum(lat * vf) / torch.clamp_min(torch.sum(vf), 1.0)
+        return torch.sum(lat * vf, dim=-1) / torch.clamp_min(torch.sum(vf, dim=-1), 1.0)
     cid = spec.class_id[file_id]
     w = vf if spec.weight is None else spec.weight[cid] * vf
-    score = torch.sum(w * lat) / torch.clamp_min(torch.sum(w), 1e-30)
+    score = torch.sum(w * lat, dim=-1) / torch.clamp_min(torch.sum(w, dim=-1), 1e-30)
     if spec.deadline is not None:
         classes = torch.arange(spec.n_classes, device=cid.device)
-        onehot = (cid[:, None] == classes) * vf[:, None]  # (N, C)
-        count = torch.sum(onehot, dim=0)
-        exceed = torch.sum(onehot * (lat[:, None] > spec.deadline), dim=0)
+        onehot = (cid[..., None] == classes) * vf[..., None]  # (..., N, C)
+        count = torch.sum(onehot, dim=-2)
+        exceed = torch.sum(onehot * (lat[..., None] > spec.deadline), dim=-2)
         frac = torch.where(count > 0, exceed / torch.clamp_min(count, 1.0), 0.0)
-        score = score + torch.sum(spec.tail_weight * frac)
+        score = score + torch.sum(spec.tail_weight * frac, dim=-1)
     return score
 
 

@@ -78,6 +78,7 @@ from .simulator import (
     run_geo_segment_raw,
     run_segment_batch,
     run_segment_raw,
+    segment_draws,
     simulate,
     simulate_fleet,
     simulate_geo_segment,

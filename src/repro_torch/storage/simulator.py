@@ -54,6 +54,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from repro_torch import diag
 from repro_torch.core.scheduling import madow_sample
 from repro_torch.kernels.fcfs_queue import fcfs_scan
 
@@ -298,6 +299,22 @@ def _check_generator(generator: torch.Generator | None, device: torch.device):
         raise ValueError(
             f"generator is on {generator.device}, the simulated system on {device}"
         )
+
+
+def segment_draws(
+    generator: torch.Generator,
+    lam_cs: Tensor,
+    n_requests: int,
+    m: int,
+    n_draws: int | None = None,
+) -> SimDraws:
+    """Fresh segment draws at rates ``lam_cs`` (C, r) (one row: no client
+    sites), spare priorities included: leading (N,), or (n_draws, N). What
+    :func:`run_segment_raw` and the candidate runners draw for themselves;
+    a replanner draws once and hands the same draws to every candidate."""
+    _check_generator(generator, lam_cs.device)
+    shape = (n_requests,) if n_draws is None else (n_draws, n_requests)
+    return _draw(generator, lam_cs, shape, m, prio=True)
 
 
 def _draws_for(
@@ -577,7 +594,12 @@ def _run_segment(
 
 
 def _hit_latency(hit_latency, device: torch.device) -> Tensor:
-    return torch.as_tensor(hit_latency, dtype=torch.float32, device=device)
+    """The hit latency as a float32 scalar on ``device``; a Python number
+    is filled in there, not copied from the host (rollouts are a guarded
+    hot path, ``diag.py``)."""
+    if isinstance(hit_latency, Tensor):
+        return _on(hit_latency, device)
+    return torch.full((), float(hit_latency), dtype=torch.float32, device=device)
 
 
 def run_segment_raw(
@@ -1127,7 +1149,9 @@ def simulate_fleet(
     ``draws`` replace the generator's, each with a leading (S, N) axis and
     ``site_id`` set; a streaming run takes a leading (W, S, N) chunk axis
     (or (S, N) for one chunk). Sharding seeds over several CUDA devices is
-    not ported and raises ``NotImplementedError``.
+    not ported and raises ``NotImplementedError``. Once the inputs are on
+    the device the run is the guarded hot path ``storage.simulate_fleet``
+    (``diag.py``).
     """
     if n_chunks < 1:
         raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
@@ -1152,6 +1176,21 @@ def simulate_fleet(
     ttl = None if cache_ttl is None else _on(cache_ttl, dev)
     hit_latency = _hit_latency(cache_hit_latency, dev)
     if stream:
+        sketch = DEFAULT_SKETCH if sketch is None else sketch
+        sketch.edges_on(dev)  # the bucket edges reach the device before the guard
+    # the inputs are on the device: the run itself is a guarded hot path
+    with diag.hot_path("storage.simulate_fleet"):
+        return _simulate_fleet_device(
+            generator, pi, lam_cs, d, rates, n_requests, n_seeds, drop_warmup,
+            ttl, hit_latency, stream, n_chunks, sketch, keep_latency, draws)
+
+
+def _simulate_fleet_device(
+    generator, pi, lam_cs, d, rates, n_requests, n_seeds, drop_warmup, ttl,
+    hit_latency, stream, n_chunks, sketch, keep_latency, draws,
+) -> FleetResult:
+    """:func:`simulate_fleet` once its inputs are on the device."""
+    if stream:
         if draws is not None and draws.arrival.dim() == 2:
             draws = SimDraws(*(None if x is None else x[None] for x in draws))
         if draws is not None and draws.arrival.shape[0] != n_chunks:
@@ -1159,7 +1198,6 @@ def simulate_fleet(
                 f"draws hold {draws.arrival.shape[0]} chunks, n_chunks is {n_chunks}")
         if draws is not None:
             n_seeds, n_requests = draws.arrival.shape[1:]
-        sketch = DEFAULT_SKETCH if sketch is None else sketch
         warm = int(n_requests * n_chunks * drop_warmup)
         stats, windows, busy, hit_count, lats = _fleet_stream_batched(
             generator, draws, pi, lam_cs, d, rates, ttl, hit_latency, n_seeds,
@@ -1168,6 +1206,6 @@ def simulate_fleet(
             latency=lats, file_id=None, site_id=None, node_busy=busy, hit=None,
             stream=stats, windows=windows, hit_count=hit_count, sketch=sketch,
         )
-    draws = _draws_for(generator, draws, lam_cs, (n_seeds, n_requests), fabric.m, False)
+    draws = _draws_for(generator, draws, lam_cs, (n_seeds, n_requests), d.shape[-1], False)
     warm = int(draws.arrival.shape[-1] * drop_warmup)
     return FleetResult(*_fleet_one(draws, pi, d, rates, warm, ttl, hit_latency))

@@ -92,8 +92,12 @@ class SketchSpec:
         return self.lo * self.growth ** np.arange(self.bins + 1)
 
     def edges_on(self, device: torch.device) -> Tensor:
-        """The edges as float32 on ``device``, as the bucket search uses them."""
-        return torch.as_tensor(self.edges, dtype=torch.float32, device=device)
+        """The edges as float32 on ``device``, as the bucket search uses them
+        (copied there once per device, so later folds make no copy)."""
+        cache = self.__dict__.setdefault("_edges_on", {})
+        if device not in cache:
+            cache[device] = torch.as_tensor(self.edges, dtype=torch.float32, device=device)
+        return cache[device]
 
 
 DEFAULT_SKETCH = SketchSpec()
