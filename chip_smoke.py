@@ -198,6 +198,34 @@ Phases, each raising on failure:
        deliberate ``np.asarray`` of a CUDA tensor must raise
        ``HostSyncError`` and ``float()`` of one the sync-debug error.
    Phase 9's scans are held to the plain twin bitwise, stacked by (N, m).
+10. The scenario engine (``repro_torch.scenarios``) at the registered sizes
+   and seed 0, the four cells at once, one process each, started before
+   phase 9 and collected after it (their walls are the solver's launches
+   from the host, so they overlap phase 9's instead of adding to them): 10a ``run_all_policies`` on
+   ``node-failure`` (adaptive's mean below static's and oblivious's,
+   ``benchmarks/scenario_suite.py:102-115``; the adaptive run under
+   ``REPRO_DIAG=1``, whose replans' solver iterations and rollout
+   arbitrations must raise nothing); 10b ``cache-outage`` with the
+   cache-blind static baseline (adaptive below it on mean and windowed p99
+   at no more storage cost, ``scenario_suite.py:82-101``); 10c
+   ``hotspot_drift_hierarchical(r=100_000, requests_per_segment=800)``,
+   static and adaptive through the hierarchy (adaptive below static,
+   ``tests/test_scenarios.py:364``); 10d ``geo-client-shift`` (replans,
+   adaptive below static, ``scenario_suite.py:74-81``). Each policy's
+   row, every replan's iterations and solve and rollout walls, and the
+   initial plans' are printed. The cells' scans come back to this process
+   and are held to the plain twin bitwise, stacked by (N, m).
+11. SmolLM-135M's float32 parameters (0.54 GB, random from a seeded
+   generator on the card) through the EC checkpoint store: planned with
+   ``plan_for_params`` on the testbed at ``checkpoint_catalogs.py``'s
+   group size and theta with chunks of a quarter group (CKPT_CHUNK_DIV),
+   saved into a temporary directory under ``build/`` (removed at the end),
+   group 0's last and first nodes failed (every group within n - k),
+   restored and compared leaf by leaf bitwise, re-planned around the
+   failures (no chunk on a failed node, n >= k), then group 0's nodes
+   failed until fewer than k of its chunks survive, where ``restore`` must
+   raise the data-loss error. Every B2 call of save and restore is held to
+   the plain twin bitwise and timed; B2's share of each wall is printed.
 
 The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
 the card could take for the work: each input read once and each output
@@ -212,9 +240,9 @@ The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 9 (4b included) every launch count is set to 0 just before
+In phases 3 to 11 (4b included) every launch count is set to 0 just before
 each main-path call (simulator, encode, decode, prefill, serving simulation,
-replan) and read just after;
+replan, scenario run, checkpoint save and restore) and read just after;
 each call must have launched its kernel. Every kernel call those paths
 make is recorded, and its output is held against the plain twin on the
 same inputs, B1's with the carried state the call passed: bitwise for B1
@@ -231,12 +259,16 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
+import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -272,6 +304,9 @@ from repro_torch.core import (  # noqa: E402
     volume_catalog,
 )
 from repro_torch import diag  # noqa: E402
+from repro_torch.checkpoint import ECCheckpointStore, plan_for_params  # noqa: E402
+from repro_torch.checkpoint.planner import flatten_with_keys  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.jlcm import max_ec_problem, max_ec_report  # noqa: E402
 from repro_torch.kernels import fcfs_queue, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -302,6 +337,13 @@ from repro_torch.serving import (  # noqa: E402
     simulate_serving,
 )
 from repro_torch.serving import router as router_mod  # noqa: E402
+from repro_torch.scenarios import (  # noqa: E402
+    get_scenario,
+    hotspot_drift_hierarchical,
+    run_all_policies,
+    run_scenario,
+)
+from repro_torch.scenarios import engine as scenario_engine  # noqa: E402
 from repro_torch.storage import (  # noqa: E402
     DEFAULT_SKETCH,
     CacheModel,
@@ -424,6 +466,19 @@ WALL_K, WALL_FILE_MB, WALL_REQUESTS, WALL_THETA, WALL_MAX_ITERS = 4.0, 150.0, 60
 WALL_CANDIDATES, WALL_DRAWS, WALL_SWEEP = (8, 16, 32), (2, 4), 32
 REPLAN_MAX_ITERS, REPLAN_ROLLOUT_REQUESTS, REPLAN_ROLLOUT_DRAWS = 150, 20_000, 2
 GEO_REPLAN_MAX_ITERS, GEO_ROLLOUT_REQUESTS, GEO_REPLAN_SEGMENTS = 100, 20_000, 3
+# phase 10: the scenario engine at the registered sizes and seed 0, the seed
+# benchmarks/scenario_suite.py runs; 10c is hotspot-drift over a 10^5-file
+# catalog as benchmarks/jlcm_scaling.py's _scenario_rows runs it
+SCENARIO_SEED = 0
+SCENARIO_HIER = dict(r=100_000, requests_per_segment=800)
+# phase 11: SmolLM-135M's float32 parameters through the EC checkpoint store,
+# planned at benchmarks/checkpoint_catalogs.py's rule: group_mb = max(64, MB /
+# 200), theta = 0.5, chunk_mb = group_mb / CKPT_CHUNK_DIV. The rule's divisor
+# is 8; at 8 MB chunks the four groups of 101-108 MB get k = 11 of the 12
+# nodes, so n = 12 and they survive one failure, not the two this phase
+# injects; at group_mb / 4 every group keeps n - k = 2 (tests/
+# test_torch_checkpoint.py plans both, as the reference does)
+CKPT_SEED, CKPT_THETA, CKPT_CHUNK_DIV, CKPT_READ_RATE = 0, 0.5, 4, 1 / 600.0
 PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
@@ -2712,6 +2767,296 @@ def phase_control_plane(dev, geo_pi, loop: dict) -> tuple:
     return by_path, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the scenario engine (A16) on kernel B1.
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def scenario_solves():
+    """The engine's initial plans (``solve``, ``solve_hierarchical``): each
+    call's name, iterations and wall, the card synchronized after it."""
+    log = []
+    originals = {name: getattr(scenario_engine, name) for name in ("solve", "solve_hierarchical")}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            sol = out if hasattr(out, "iterations") else out[1]
+            log.append((name, int(sol.iterations), time.perf_counter() - t0))
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(scenario_engine, name, timed(name, fn))
+    try:
+        yield log
+    finally:
+        for name, fn in originals.items():
+            setattr(scenario_engine, name, fn)
+
+
+@contextlib.contextmanager
+def adaptive_armed(guarded: dict):
+    """``REPRO_DIAG=1`` around every adaptive ``run_scenario`` call the
+    engine makes (``run_all_policies`` included); ``guarded`` gets each
+    guarded region's calls in those runs."""
+    fn = scenario_engine.run_scenario
+
+    def call(spec, policy="adaptive", **kwargs):
+        if policy != "adaptive":
+            return fn(spec, policy, **kwargs)
+        with diag_armed() as reg:
+            before = {k: v.guarded_calls for k, v in reg.items()}
+            out = fn(spec, policy, **kwargs)
+            for k, v in reg.items():
+                if v.guarded_calls > before.get(k, 0):
+                    guarded[k] = guarded.get(k, 0) + v.guarded_calls - before.get(k, 0)
+        return out
+
+    scenario_engine.run_scenario = call
+    try:
+        yield guarded
+    finally:
+        scenario_engine.run_scenario = fn
+
+
+def print_outcome(tag: str, o) -> None:
+    line = (f"[{tag}] {o.policy}: mean {o.mean:.6g} s, p99 {o.p99:.6g} s, windowed p99 "
+            f"{o.p99_windowed:.6g} s, degraded {o.degraded_frac:.4f}, segment means "
+            f"{[round(float(v), 3) for v in o.seg_mean]} s")
+    if np.isfinite(o.storage_cost):
+        line += f", hit_frac {o.hit_frac:.4f}, storage cost {o.storage_cost:.4f}"
+    if o.site_mean is not None:
+        line += f", site means {[round(float(v), 3) for v in o.site_mean]} s"
+    if o.replans:
+        line += (f"; {o.replans} replans: iterations {[int(v) for v in o.solve_iters]}, solve "
+                 f"walls {np.round(o.solve_walls, 3).tolist()} s, rollout walls "
+                 f"{np.round(o.rollout_walls, 4).tolist()} s")
+    if o.resolved_counts:
+        line += f", resolved clusters {list(o.resolved_counts)}"
+    print(line)
+
+
+def run_scenario_cell(tag: str, label: str, fn, failed: list) -> tuple:
+    """One scenario cell on the card: B1's launches counted, every scan
+    recorded, the engine's initial plans timed; prints every outcome and
+    returns ``(outcomes by policy, launches, calls, solver seconds, wall)``."""
+    with recorded(simulator, "fcfs_scan") as calls, scenario_solves() as solves:
+        t0 = time.perf_counter()
+        outs, launches = counted(f"{tag} {label}", fn)
+        wall = time.perf_counter() - t0
+    by_policy = {o.policy: o for o in outs}
+    for name, iters, secs in solves:
+        print(f"[{tag}] initial plan ({name}): {iters} iterations, {secs:.3f} s")
+    for o in outs:
+        print_outcome(tag, o)
+    solver_s = sum(secs for _, _, secs in solves) + sum(sum(o.solve_walls) for o in outs)
+    print(f"[{tag}] {label}: wall {wall:.3f} s, solver {solver_s:.3f} s "
+          f"({100 * solver_s / wall:.1f} %), B1 launches {launches}")
+    for o in outs:
+        if not np.isfinite(o.mean):
+            failed.append(f"{tag}: {o.policy}'s mean {o.mean}")
+    return by_policy, launches, calls, solver_s, wall
+
+
+def scenario_cell(tag: str, device: str) -> dict:
+    """One cell of phase 10 on ``device``, in a process of its own
+    (``phase_scenarios`` runs the four at once): the cell's printed lines,
+    its gate failures, B1's launches, the largest busy |difference| of its
+    scans held bitwise against the plain twin, and its solver seconds and
+    wall."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    failed: list[str] = []
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        cl = tahoe_testbed(device=dev)
+        if tag == "10a":  # node-failure, all three policies; adaptive under REPRO_DIAG=1
+            guarded: dict = {}
+            with adaptive_armed(guarded):
+                out, n, calls, sec, wall = run_scenario_cell(
+                    tag, "run_all_policies(node-failure)", lambda: run_all_policies(
+                        get_scenario("node-failure"), seed=SCENARIO_SEED, cluster=cl), failed)
+            ada, sta, obl = out["adaptive"], out["static"], out["oblivious"]
+            print(f"[10a] guarded calls in the adaptive run under REPRO_DIAG=1: {guarded}")
+            if not (ada.mean < sta.mean and ada.mean < obl.mean):
+                failed.append(f"10a: adaptive mean {ada.mean} not below static {sta.mean} and "
+                              f"oblivious {obl.mean} (scenario_suite.py:102-115)")
+            if not (guarded.get("core.solve_merged", 0) >= ada.replans
+                    and guarded.get("serving.batched_rollout_scores", 0) == ada.replans):
+                failed.append(f"10a: the adaptive run under REPRO_DIAG=1 guarded {guarded}, "
+                              f"{ada.replans} replans")
+        elif tag == "10b":  # cache-outage with the cache-blind static baseline
+            out, n, calls, sec, wall = run_scenario_cell(
+                tag, "run_all_policies(cache-outage)", lambda: run_all_policies(
+                    get_scenario("cache-outage"), seed=SCENARIO_SEED, cluster=cl,
+                    include_cacheblind=True), failed)
+            ada, blind = out["adaptive"], out["static-cacheblind"]
+            if not (ada.mean < blind.mean and ada.p99_windowed < blind.p99_windowed
+                    and ada.storage_cost <= blind.storage_cost):
+                failed.append(f"10b: adaptive mean / windowed p99 / storage cost {ada.mean} / "
+                              f"{ada.p99_windowed} / {ada.storage_cost} against the cache-blind "
+                              f"{blind.mean} / {blind.p99_windowed} / {blind.storage_cost} "
+                              "(scenario_suite.py:82-101)")
+        elif tag == "10c":  # hotspot-drift over 10^5 files, planned through the hierarchy
+            spec, h = hotspot_drift_hierarchical(**SCENARIO_HIER)
+            print(f"[10c] {spec.name}: {spec.r} files in {h.n_clusters} clusters, "
+                  f"{spec.requests_per_segment} requests a segment, theta {spec.theta:.6g}")
+            out, n, calls, sec, wall = run_scenario_cell(
+                tag, "static and adaptive (hierarchical)", lambda: [
+                    run_scenario(spec, policy, seed=SCENARIO_SEED, cluster=cl, hierarchy=h)
+                    for policy in ("static", "adaptive")], failed)
+            if not out["adaptive"].mean < out["static"].mean:
+                failed.append(f"10c: adaptive mean {out['adaptive'].mean} not below static "
+                              f"{out['static'].mean} (tests/test_scenarios.py:364)")
+        else:  # 10d: geo-client-shift, the geo closed loop against the geo-oblivious plan
+            out, n, calls, sec, wall = run_scenario_cell(
+                tag, "run_all_policies(geo-client-shift)", lambda: run_all_policies(
+                    get_scenario("geo-client-shift"), seed=SCENARIO_SEED, cluster=cl), failed)
+            ada, sta = out["adaptive"], out["static"]
+            if not (ada.replans > 0 and ada.mean < sta.mean):
+                failed.append(f"10d: {ada.replans} replans, adaptive mean {ada.mean} against "
+                              f"static {sta.mean} (scenario_suite.py:74-81)")
+        err = hold_grouped(calls, tag, dev)
+    return dict(tag=tag, log=log.getvalue(), failed=failed, launches=n, err=err,
+                solver_s=sec, wall=wall)
+
+
+SCENARIO_PATHS = {"10a": "scenario_node_failure", "10b": "scenario_cache_outage",
+                  "10c": "scenario_hotspot_drift_hier", "10d": "scenario_geo_client_shift"}
+
+
+def phase_scenarios(dev) -> tuple:
+    """Phase 10: the four cells at once, one process each, after phase 9 so
+    that phase 9's walls are its own. A cell's wall is the solver's launches
+    from the host (99 % of it, PERF.md §6); one after another the cells take
+    ~480 s, which would put the script near its time limit on a slow host.
+    Prints each cell's lines; returns B1's launches by path and the largest
+    busy |difference|."""
+    t_phase = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=len(SCENARIO_PATHS),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        cells = list(pool.map(scenario_cell, SCENARIO_PATHS, [str(dev)] * len(SCENARIO_PATHS)))
+    for cell in cells:
+        print(cell["log"], end="")
+    by_path = {SCENARIO_PATHS[cell["tag"]]: cell["launches"] for cell in cells}
+    cells_s = sum(cell["wall"] for cell in cells)
+    solver_s = sum(cell["solver_s"] for cell in cells)
+    print(f"[10] fcfs launches {by_path}")
+    print(f"[10] phase 10 wall {time.perf_counter() - t_phase:.3f} s (the cells' walls add to "
+          f"{cells_s:.3f} s, of it solver {solver_s:.3f} s, {100 * solver_s / cells_s:.1f} %)")
+    failed = [msg for cell in cells for msg in cell["failed"]]
+    if failed:
+        raise AssertionError("phase 10 failed: " + "; ".join(failed))
+    return by_path, max(cell["err"] for cell in cells)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: SmolLM-135M's parameters through the EC checkpoint store (B2).
+# ---------------------------------------------------------------------------
+
+
+def tree_bytes(params) -> int:
+    return sum(leaf.numel() * leaf.element_size() for _, leaf in flatten_with_keys(params))
+
+
+def phase_checkpoint(dev, limits: dict) -> dict:
+    """Phase 11: plan, save, two node failures, restore bitwise, replan,
+    then a failure beyond a group's tolerance must raise; every B2 call of
+    save and restore held bitwise to the plain twin and timed."""
+    t_phase = time.perf_counter()
+    model = lm.Model(get_config("smollm-135m"), device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(CKPT_SEED))
+    nbytes = tree_bytes(params)
+    group_mb = max(64.0, nbytes / 2**20 / 200)
+    cl = tahoe_testbed(device=dev)
+    t0 = time.perf_counter()
+    plan = plan_for_params(params, cl, group_mb=group_mb, chunk_mb=group_mb / CKPT_CHUNK_DIV,
+                           theta=CKPT_THETA, read_rate=CKPT_READ_RATE)
+    plan_s = time.perf_counter() - t0
+    coded = sum(g.n * -(-g.nbytes // g.k) for g in plan.groups)
+    print(f"[11] SmolLM-135M float32: {nbytes / 1e9:.4f} GB in {len(flatten_with_keys(params))} "
+          f"leaves; plan (group {group_mb:g} MB, chunk {group_mb / CKPT_CHUNK_DIV:g} MB, theta "
+          f"{CKPT_THETA}) in {plan_s:.3f} s: restore bound {plan.latency_bound:.4f} s, storage "
+          f"cost {plan.storage_cost:.4f}; " + "; ".join(
+              f"{g.name} {g.nbytes / 2**20:.1f} MiB (n={g.n}, k={g.k}) on {list(g.placement)}"
+              for g in plan.groups))
+    failed: list[str] = []
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_checkpoint_", dir=BUILD_DIR.parent))
+    try:
+        store = ECCheckpointStore(root, plan)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded(ops, "gf256_matmul_cuda") as save_calls:
+            _, save_launches = counted("11 save", lambda: store.save(params, step=0),
+                                       "gf256_matmul")
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t0
+        on_disk = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+        print(f"[11] save: {coded / 1e9:.4f} GB coded, {on_disk / 1e9:.4f} GB on disk, "
+              f"{save_s:.3f} s, B2 launches {save_launches}")
+        g0 = plan.groups[0]
+        victims = [g0.placement[-1], g0.placement[0]]  # a parity chunk, then a data chunk
+        for v in victims:
+            store.fail_node(v)
+        lost = {g.name: sum(j in victims for j in g.placement) for g in plan.groups}
+        if any(lost[g.name] > g.n - g.k for g in plan.groups):
+            failed.append(f"11: failing {victims} exceeds a group's tolerance: {lost}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded(ops, "gf256_matmul_cuda") as restore_calls:
+            got, restore_launches = counted("11 restore", lambda: store.restore(
+                0, params, seed=CKPT_SEED), "gf256_matmul")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mismatched = [key for (key, a), (_, b) in zip(flatten_with_keys(params),
+                                                      flatten_with_keys(got))
+                      if not (a.dtype == b.dtype and torch.equal(a, b))]
+        print(f"[11] nodes {victims} failed (chunks lost by group {lost}); restore {restore_s:.3f} s, "
+              f"B2 launches {restore_launches}; leaves bitwise equal "
+              f"{len(flatten_with_keys(params)) - len(mismatched)} of {len(flatten_with_keys(params))}")
+        if mismatched:
+            failed.append(f"11: restored leaves differ: {mismatched}")
+        del got
+        replan = plan.replan_after_failure(cl, set(victims), read_rate=CKPT_READ_RATE)
+        bad = [g.name for g in replan.groups if set(g.placement) & set(victims) or g.n < g.k]
+        print(f"[11] replan_after_failure: " + "; ".join(
+            f"{g.name} (n={g.n}, k={g.k}) on {list(g.placement)}" for g in replan.groups))
+        if bad:
+            failed.append(f"11: the replan places chunks on failed nodes or n < k: {bad}")
+        more = []  # fail group 0's nodes until fewer than k of its chunks survive
+        for node in g0.placement:
+            if sum(j in store.alive_nodes() for j in g0.placement) < g0.k:
+                break
+            if node in store.alive_nodes():
+                store.fail_node(node)
+                more.append(node)
+        try:
+            store.restore(0, params, seed=CKPT_SEED)
+            failed.append(f"11: restore after failing {victims + more} did not raise")
+        except RuntimeError as err:
+            print(f"[11] {g0.name} after failing {victims + more}: restore raised {err}")
+            if "data loss" not in str(err):
+                failed.append(f"11: unexpected error {err}")
+        save = hold_gf_against_plain(save_calls, gf256_matmul_plain, gf256_matmul_cuda,
+                                     "11 save", limits)
+        restore = hold_gf_against_plain(restore_calls, gf256_matmul_plain, gf256_matmul_cuda,
+                                        "11 restore", limits)
+        for label, rec, wall in (("save", save, save_s), ("restore", restore, restore_s)):
+            print(f"[11] {label}: its B2 calls take {rec['sum_ms']:.4f} ms of the "
+                  f"{wall * 1e3:.3f} ms wall ({100 * rec['sum_ms'] / (wall * 1e3):.2f} %)")
+    finally:
+        shutil.rmtree(root)
+    print(f"[11] phase 11 wall {time.perf_counter() - t_phase:.3f} s")
+    if failed:
+        raise AssertionError("phase 11 failed: " + "; ".join(failed))
+    return dict(save=(save_launches, save), restore=(restore_launches, restore))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)  # keep output if the run is cut
@@ -2743,6 +3088,8 @@ def main() -> int:
     closed_by_path, closed_err, chunk, loop = phase_closed_loop(dev, sol, geo_pi, geo_mean, limits)
     control_by_path, control_err = phase_control_plane(dev, geo_pi, loop)
     del loop
+    scenario_by_path, scenario_err = phase_scenarios(dev)
+    ckpt = phase_checkpoint(dev, limits)
     by_path = {"quickstart_simulate": quick_launches,
                "catalog_simulate_fleet": fleet_launches,
                "figures_simulate": figure_launches,
@@ -2750,7 +3097,8 @@ def main() -> int:
                "tenant_simulate": tenant_launches,
                "geo_simulate_fleet": geo_launches,
                **closed_by_path,
-               **control_by_path}
+               **control_by_path,
+               **scenario_by_path}
     kernels = [{
         "name": "fcfs_scan",
         "route": "cuda",
@@ -2760,7 +3108,7 @@ def main() -> int:
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "max_abs_err": max(worst, quick_err, record["max_abs_err"], figure_err,
-                           tenant_err, fleets_err, closed_err, control_err),
+                           tenant_err, fleets_err, closed_err, control_err, scenario_err),
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
         "bound_ms": record["bound_ms"],
@@ -2777,14 +3125,17 @@ def main() -> int:
          "data_plane_decode_requests"),
     ]:
         launches, rec = plane[name]
+        paths = {path: launches}
+        if name == "gf256_matmul":  # phase 11's encodes and degraded decodes
+            paths.update(checkpoint_save=ckpt["save"][0], checkpoint_restore=ckpt["restore"][0])
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gf256_matmul.cu",
             "replaces": replaces,
             "parity": "bitwise",
-            "launches": launches,
-            "launches_by_path": {path: launches},
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
@@ -2792,6 +3143,9 @@ def main() -> int:
             "bound_by": rec["bound_by"],
             "library_ms": None,  # no PyTorch call computes a GF(256) product
         })
+        if name == "gf256_matmul":  # the largest checkpoint encode, on its own inputs
+            kernels[-1].update(ms_checkpoint_save=ckpt["save"][1]["ms"],
+                               bound_ms_checkpoint_save=ckpt["save"][1]["bound_ms"])
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",

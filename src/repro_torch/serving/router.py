@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -401,7 +401,10 @@ def batched_rollout_scores(
 
 def _rollout_draws(generator, draws, lam_cs: Tensor, n_requests: int, m: int, k: int):
     """One set of (K, N) rollout draws, shared by every candidate (and by
-    the sequential loop's calls)."""
+    the sequential loop's calls): ``draws`` as given, or a callable's draws
+    at the planned rates ``lam_cs`` (C, r), or fresh from ``generator``."""
+    if callable(draws):
+        return draws(lam_cs)
     return draws if draws is not None else segment_draws(generator, lam_cs, n_requests, m, k)
 
 
@@ -552,7 +555,7 @@ class AdaptiveReplanner:
         pi0: np.ndarray | None = None,
         carry: Any | None = None,
         generator: torch.Generator | None = None,
-        draws: SimDraws | None = None,
+        draws: SimDraws | Callable[[Tensor], SimDraws] | None = None,
         repair: Any | None = None,
         cache_up: bool = True,
     ) -> np.ndarray:
@@ -561,7 +564,8 @@ class AdaptiveReplanner:
         ``pi0`` (the plan now dispatching) adds warm-started candidates;
         ``carry`` (``storage.simulator.SimCarry``) plus a ``generator`` on
         its device, or explicit rollout ``draws`` (a leading (K,) axis, at
-        the planned rates, repair rows included), switch scoring to
+        the planned rates, repair rows included; or a callable that takes
+        those rates, (1, rows), and returns them), switch scoring to
         rollouts from the live queue state. ``repair`` (a
         ``storage.repair.RepairFlow``) folds known reconstruction traffic
         into every candidate solve and rollout. With a ``cache`` model,
@@ -832,11 +836,12 @@ class GeoAdaptiveReplanner:
         pi0: np.ndarray | None = None,
         carry: Any | None = None,
         generator: torch.Generator | None = None,
-        draws: SimDraws | None = None,
+        draws: SimDraws | Callable[[Tensor], SimDraws] | None = None,
     ) -> np.ndarray:
         """New (r, m) dispatch matrix from the estimated (C, r) traffic
         matrix plus the health mask; ``carry`` with a ``generator`` or geo
-        ``draws`` (leading (K,), ``site_id`` set) switch to rollouts."""
+        ``draws`` (leading (K,), ``site_id`` set; or a callable that takes
+        the (C, r) rollout rates and returns them) switch to rollouts."""
         lam_cs = _host(lam_cs).astype(np.float64)
         c, r = lam_cs.shape
         avail = _host(avail).astype(bool)
