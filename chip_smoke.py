@@ -226,6 +226,30 @@ Phases, each raising on failure:
    failed until fewer than k of its chunks survive, where ``restore`` must
    raise the data-loss error. Every B2 call of save and restore is held to
    the plain twin bitwise and timed; B2's share of each wall is printed.
+12. Training (``repro_torch.launch.train`` and ``launch/steps.py``):
+   12a. ``examples/train_lm.py``'s flow at full width: ``train("smollm-135m",
+       smoke=False)``, float32, batch 8 x seq 64, lr 3e-3 on the cosine
+       schedule, for TRAIN's 600 steps, the whole TrainState (parameters
+       and both AdamW moments, 1.61 GB) planned by JLCM as 31 files and
+       saved through the EC store every 200 steps; the first group's first
+       storage node fails at step 500, after the last save; then a
+       ``resume=True`` run restores step 400 from the degraded store and
+       trains to 600, saving step 400 again. The example's assertion in both
+       runs (the last loss below the first run's first minus 0.5); the
+       restored state bitwise, leaf for leaf, to the state the first run
+       saved; every B2 call of the three saves and the restore held bitwise
+       to the plain twin and timed, save by save, beside each wall; the
+       step time and tokens/s.
+   12b. SmolLM-135M at full width on one batch of 2 x 2048 tokens: the loss
+       and every gradient leaf at O0 (naive attention, dense CE), O2 (B4
+       under its ``autograd.Function``, ``vocab_chunk`` 32768) and O3 (O2
+       with each layer recomputed in the backward). The loss within rtol
+       2e-4 and every leaf within a relative L2 of 1e-3, O2 and O3 against
+       O0 and O3 against O2; B4's outputs carry a ``grad_fn``; every B4
+       call (O2's 30, O3's 30 and 30 recomputed) held to the plain twin at
+       atol 2e-5; B4's forward and the Function's backward (torch ops)
+       timed with CUDA events on the path's inputs, beside their bounds and
+       ``scaled_dot_product_attention``.
 
 The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
 the card could take for the work: each input read once and each output
@@ -235,14 +259,17 @@ their integer operations, counted from the design, sit under the bytes at
 the INT32 peak. B4 computes float32 attention as three TF32 tensor-core
 passes (3xTF32), so its bound is 3 x 2 x 2 x hd FLOP per visible (row,
 key) pair at 495 TFLOP/s; the one-pass TF32, float32-outside-the-tensor-
-cores and byte times stand beside it as fields.
+cores and byte times stand beside it as fields. The backward of B4's
+Function (torch ops, no kernel) is bound by its float32 operations, 5 x 2 x
+hd per visible pair, at 67 TFLOP/s (TF32 is off).
 The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 11 (4b included) every launch count is set to 0 just before
+In phases 3 to 12 (4b included) every launch count is set to 0 just before
 each main-path call (simulator, encode, decode, prefill, serving simulation,
-replan, scenario run, checkpoint save and restore) and read just after;
+replan, scenario run, checkpoint save and restore, training run, loss and
+gradients) and read just after;
 each call must have launched its kernel. Every kernel call those paths
 make is recorded, and its output is held against the plain twin on the
 same inputs, B1's with the carried state the call passed: bitwise for B1
@@ -256,6 +283,7 @@ line. It needs a CUDA card, and fails without one.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -323,8 +351,12 @@ from repro_torch.kernels.gf256_matmul import (  # noqa: E402
     gf256_matmul_plain,
 )
 from repro_torch.kernels.gf256_matmul import load_library as load_gf256  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.steps import build_model, loss_and_grads  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AdaptiveReplanner,
     EwmaMomentEstimator,
@@ -479,6 +511,22 @@ SCENARIO_HIER = dict(r=100_000, requests_per_segment=800)
 # injects; at group_mb / 4 every group keeps n - k = 2 (tests/
 # test_torch_checkpoint.py plans both, as the reference does)
 CKPT_SEED, CKPT_THETA, CKPT_CHUNK_DIV, CKPT_READ_RATE = 0, 0.5, 4, 1 / 600.0
+# phase 12: training. 12a is examples/train_lm.py's flow at full width:
+# SmolLM-135M float32 at batch 8 x seq 64 and lr 3e-3 on train()'s cosine,
+# the whole TrainState in the EC store (train.py's plan), a storage node
+# failing mid-run, then a resume. The example trains the smoke config for
+# 150 steps; at full width 150 steps move the loss by 0.1 and 600 by 1.5
+# (PERF.md §6), so 600 steps with a save every 200: the first run
+# saves at 200 and 400, the node fails at 500 (after the last save, so the
+# restore reads parity), and the resume restores step 400 and saves it once
+# more (train.py replays the saved step)
+TRAIN = dict(steps=600, ckpt_every=200, fail_node_at=500, batch=8, seq=64, lr=3e-3)
+TRAIN_LOSS_DROP = 0.5  # examples/train_lm.py's assertion, in both runs
+# 12b: one batch of SmolLM-135M's published 2048-token context, batch 2,
+# through O0 (naive attention, dense CE), O2 (B4 under autograd, chunked CE)
+# and O3 (O2 with each layer recomputed in the backward); the loss within
+# tests/test_perf_opts.py's rtol, every gradient leaf within a relative L2
+GRAD_BATCH, GRAD_SEQ, GRAD_SEED, GRAD_LOSS_RTOL, GRAD_REL_L2 = 2, 2048, 0, 2e-4, 1e-3
 PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
@@ -3057,6 +3105,273 @@ def phase_checkpoint(dev, limits: dict) -> dict:
     return dict(save=(save_launches, save), restore=(restore_launches, restore))
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: training on the card.
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def watched_training():
+    """Record what ``train()`` does without changing it: each train step's
+    wall (ended by a synchronize), and each checkpoint save's and restore's
+    wall and B2 launches, with a copy of the state a save was given and the
+    state a restore returned (and the nodes alive then)."""
+    log = dict(steps=[], saves=[], restores=[])
+    make_step, save, restore = (train_mod.make_train_step, ECCheckpointStore.save,
+                                ECCheckpointStore.restore)
+    b2 = COUNTERS["gf256_matmul"]
+
+    def timed(fn, *args, **kwargs):
+        before = b2.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, dict(wall=time.perf_counter() - t0, launches=b2.launches - before)
+
+    def make_train_step(model, opt):
+        step_fn = make_step(model, opt)
+
+        def train_step(state, batch):
+            out, rec = timed(step_fn, state, batch)
+            log["steps"].append(rec["wall"])
+            return out
+
+        return train_step
+
+    def timed_save(self, state, step):
+        out, rec = timed(save, self, state, step)
+        copy = [leaf.clone() for leaf in tree_leaves(state)]
+        log["saves"].append(dict(rec, step=step, state=copy))
+        return out
+
+    def timed_restore(self, step, template, **kwargs):
+        out, rec = timed(restore, self, step, template, **kwargs)
+        log["restores"].append(dict(rec, step=step, state=out, alive=self.alive_nodes()))
+        return out
+
+    train_mod.make_train_step = make_train_step
+    ECCheckpointStore.save, ECCheckpointStore.restore = timed_save, timed_restore
+    try:
+        yield log
+    finally:
+        train_mod.make_train_step = make_step
+        ECCheckpointStore.save, ECCheckpointStore.restore = save, restore
+
+
+def phase_train(dev, limits: dict) -> dict:
+    """Phase 12a: ``train()`` at full width with EC checkpoints of the whole
+    TrainState and a node failure, then a resume from the degraded store;
+    the example's loss gate in both runs, the restore bitwise to the state
+    saved, every B2 call of saves and restore held to the plain twin."""
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=BUILD_DIR.parent))
+    first = dict(TRAIN, smoke=False, ckpt_dir=str(root), log_every=100, device=dev)
+    again = dict(first, fail_node_at=None, resume=True)
+    try:
+        with watched_training() as log, recorded(ops, "gf256_matmul_cuda") as calls:
+            (_, losses, store), first_launches = counted(
+                "12a train", lambda: train_mod.train(**first), "gf256_matmul")
+            (_, losses2, _), again_launches = counted(
+                "12a resume", lambda: train_mod.train(**again), "gf256_matmul")
+        plan = store.plan
+        victim = plan.groups[0].placement[0]
+        coded = sum(g.n * -(-g.nbytes // g.k) for g in plan.groups)
+        nbytes = sum(g.nbytes for g in plan.groups)
+        codes = collections.Counter((g.k, g.n) for g in plan.groups)
+        print(f"[12a] TrainState {nbytes / 1e9:.4f} GB in {len(plan.groups)} groups "
+              f"((k, n): {dict(sorted(codes.items()))}), {coded / 1e9:.4f} GB coded a save; "
+              f"restore bound {plan.latency_bound:.4f} s; node {victim} failed at step "
+              f"{TRAIN['fail_node_at']}")
+
+        # the example's assertions, in both runs
+        for label, tail in (("train", losses[-1]), ("resume", losses2[-1])):
+            ok = tail < losses[0] - TRAIN_LOSS_DROP
+            print(f"[12a] {label}: loss {losses[0]:.4f} -> {tail:.4f} "
+                  f"({'below' if ok else 'NOT below'} the first minus {TRAIN_LOSS_DROP})")
+            if not ok:
+                failed.append(f"12a {label}: last loss {tail:.4f} not below {losses[0]:.4f} - "
+                              f"{TRAIN_LOSS_DROP}")
+        # two saves, then one restore on the degraded store and one save
+        save_steps = [rec["step"] for rec in log["saves"]]
+        (rst,) = log["restores"]
+        want_steps = list(range(TRAIN["ckpt_every"], TRAIN["steps"], TRAIN["ckpt_every"]))
+        if save_steps != want_steps + [want_steps[-1]] or rst["step"] != want_steps[-1]:
+            failed.append(f"12a: saves at {save_steps}, restore of {rst['step']}")
+        if victim in rst["alive"]:
+            failed.append(f"12a: node {victim} was alive at the restore")
+        held = log["saves"][len(want_steps) - 1]["state"]
+        restored = flatten_with_keys(rst["state"])
+        mismatched = [key for (key, got), want in zip(restored, held)
+                      if not (got.dtype == want.dtype and torch.equal(got, want))]
+        print(f"[12a] restore of step {rst['step']} with node {victim} down: "
+              f"{len(restored) - len(mismatched)} of {len(held)} leaves bitwise equal to the "
+              f"state the first run saved")
+        if mismatched or len(restored) != len(held):
+            failed.append(f"12a: restored leaves differ: {mismatched}")
+
+        # every B2 call, save by save, held to the plain twin and timed
+        spans, at = [], 0
+        for label, rec in ([(f"save {r['step']}", r) for r in log["saves"][:len(want_steps)]]
+                           + [(f"restore {rst['step']}", rst)]
+                           + [(f"save {r['step']} (resume)", r)
+                              for r in log["saves"][len(want_steps):]]):
+            spans.append((label, rec, calls[at:at + rec["launches"]]))
+            at += rec["launches"]
+        if at != len(calls):
+            failed.append(f"12a: {len(calls)} B2 calls, {at} counted by saves and restore")
+        held_by = {}
+        for label, rec, span in spans:
+            held_by[label] = hold_gf_against_plain(span, gf256_matmul_plain, gf256_matmul_cuda,
+                                                   f"12a {label}", limits)
+            print(f"[12a] {label}: wall {rec['wall']:.3f} s, {rec['launches']} B2 launches "
+                  f"taking {held_by[label]['sum_ms']:.4f} ms "
+                  f"({100 * held_by[label]['sum_ms'] / (rec['wall'] * 1e3):.3f} % of it)")
+        del calls
+
+        steps_s = np.asarray(log["steps"])
+        steady = np.median(steps_s[5:])
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        print(f"[12a] {len(steps_s)} train steps: first {steps_s[0] * 1e3:.1f} ms, median "
+              f"{steady * 1e3:.2f} ms, p95 {np.quantile(steps_s[5:], 0.95) * 1e3:.2f} ms, "
+              f"{tokens / steady:.6g} tokens/s ({tokens} tokens a step); B2 launches "
+              f"{first_launches} in the first run, {again_launches} in the resume")
+    finally:
+        shutil.rmtree(root)
+        torch.cuda.empty_cache()
+    print(f"[12a] phase 12a wall {time.perf_counter() - t_phase:.3f} s")
+    if failed:
+        raise AssertionError("phase 12a failed: " + "; ".join(failed))
+    saves = [held_by[label] for label, _, _ in spans if label.startswith("save")]
+    return dict(save=(sum(r["launches"] for r in log["saves"]),
+                      max(saves, key=lambda r: r["bound_ms"])),
+                restore=(rst["launches"], held_by[f"restore {rst['step']}"]))
+
+
+def backward_bound(q, k) -> dict:
+    """The least time for the backward of one causal attention call: q, k,
+    v, the output and its cotangent read once, dq, dk, dv written once, or
+    its float32 operations (S recomputed, dV, dP, dQ, dK: 5 x 2 x hd per
+    visible (row, key) pair) at the float32 rate, as TF32 is off."""
+    b, tq, h, hd = q.shape
+    pairs = int(np.minimum(np.arange(1, tq + 1), k.shape[1]).sum())
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    n_ops = 10 * hd * pairs * b * h
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", bound_flop=n_ops)
+
+
+def phase_grad(dev) -> dict:
+    """Phase 12b: SmolLM-135M's loss and gradients at O0, O2 (B4 under
+    autograd) and O3 (O2 with remat) on one batch; every B4 call held to the
+    plain twin; B4's forward and its backward timed on the path's inputs."""
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("smollm-135m")
+    models = {lvl: build_model(cfg, dtype=torch.float32, remat="none", opt=lvl, device=dev)
+              for lvl in ("O0", "O2", "O3")}
+    params = models["O0"].init(torch.Generator(device=dev).manual_seed(GRAD_SEED))
+    batch = SyntheticLM(cfg.vocab, GRAD_SEQ, GRAD_BATCH, seed=GRAD_SEED, device=dev).batch_at(0)
+    results, launches, walls = {}, {}, {}
+    with recorded(fa, "flash_attention") as calls:
+        for lvl in ("O0", "O2", "O3"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if lvl == "O0":  # naive attention: no B4
+                results[lvl] = loss_and_grads(models[lvl], params, batch)
+            else:
+                start = len(calls)
+                results[lvl], launches[lvl] = counted(
+                    f"12b {lvl}", lambda: loss_and_grads(models[lvl], params, batch),
+                    "flash_attention")
+            torch.cuda.synchronize()
+            walls[lvl] = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[12b] {lvl} loss and gradients: {walls[lvl] * 1e3:.1f} ms, peak {peak:.2f} GiB"
+                  + (f", {launches[lvl]} B4 launches" if lvl in launches else ""))
+            if lvl == "O2" and not all(out.grad_fn is not None for _, _, out in calls[start:]):
+                failed.append("12b: B4's output under autograd has no grad_fn")
+    for lvl, base in (("O2", "O0"), ("O3", "O0"), ("O3", "O2")):
+        (loss, grads), (want, want_grads) = results[lvl], results[base]
+        ref = dict(flatten_with_keys(want_grads))
+        rel = {key: float((g - ref[key]).norm() / ref[key].norm())
+               for key, g in flatten_with_keys(grads)}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(float(loss) - float(want)) / abs(float(want))
+        print(f"[12b] {lvl} vs {base}: loss {float(loss):.7f} vs {float(want):.7f} "
+              f"(rel {loss_rel:.3g}); worst gradient leaf {worst}: relative L2 "
+              f"{rel[worst]:.3g} over {len(rel)} leaves")
+        if not loss_rel <= GRAD_LOSS_RTOL:
+            failed.append(f"12b {lvl} vs {base}: loss rel {loss_rel:.3g} > {GRAD_LOSS_RTOL}")
+        if not rel[worst] <= GRAD_REL_L2:
+            failed.append(f"12b {lvl} vs {base}: {worst} relative L2 {rel[worst]:.3g}")
+    del results
+
+    # every B4 call (O2's forwards, O3's forwards and recomputes) vs the twin
+    worst_err = 0.0
+    with torch.no_grad():
+        for args, kwargs, got in calls:
+            q, k, v = (a.detach() for a in args)
+            plain_ms, want = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kwargs), reps=1)
+            worst_err = max(worst_err, float((got.detach() - want).abs().max()))
+    print(f"[12b] {len(calls)} B4 calls of the gradient path == plain twin, max_abs_err "
+          f"{worst_err:.3g}")
+    if not worst_err <= 2e-5:
+        failed.append(f"12b: B4 differs from plain twin by {worst_err}")
+
+    # B4's forward and the Function's backward on the path's own inputs
+    args, kwargs, _ = calls[-1]
+    del calls
+    q, k, v = (a.detach() for a in args)
+    record = dict(max_abs_err=worst_err, **flash_bound(q, k))
+    bwd = backward_bound(q, k)
+    scale = kwargs["scale"]
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v, **kwargs)  # warm
+        record["ms"], out = cuda_ms(lambda: fa.flash_attention(q, k, v, **kwargs), reps=5)
+        record["plain_ms"], _ = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kwargs),
+                                        reps=1)
+        dout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+        backward = lambda: fa.flash_attention_backward(
+            q, k, v, out, dout, scale=scale, causal=kwargs["causal"],
+            window=kwargs["window"], k_blk=kwargs["k_blk"])
+        backward()  # warm
+        record["backward_ms"], _ = cuda_ms(backward, reps=3)
+    g = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (
+        q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale)
+
+    def sdpa_both():
+        return torch.autograd.grad(sdpa(), (qt, kt, vt), dout.transpose(1, 2))
+
+    with torch.no_grad():
+        sdpa()  # warm
+        record["library_ms"], _ = cuda_ms(sdpa, reps=5)
+    sdpa_both()  # warm
+    both_ms, _ = cuda_ms(sdpa_both, reps=3)
+    record.update(backward_bound_ms=bwd["bound_ms"], library_fwd_bwd_ms=both_ms)
+    print(f"[12b] B4 {tuple(q.shape)} x {tuple(k.shape)} forward on the path's inputs: "
+          f"{record['ms']:.4f} ms (plain twin {record['plain_ms']:.3f} ms, "
+          f"scaled_dot_product_attention {record['library_ms']:.4f} ms, bound "
+          f"{record['bound_ms']:.4f} ms, {record['bound_by']}); its backward in torch ops "
+          f"{record['backward_ms']:.4f} ms (bound {bwd['bound_ms']:.4f} ms: "
+          f"{bwd['bound_flop']:.4g} float32 FLOP, {bwd['bound_by']}; "
+          f"{100 * bwd['bound_ms'] / record['backward_ms']:.1f} % of it); "
+          f"scaled_dot_product_attention forward + backward {both_ms:.4f} ms")
+    print(f"[12b] phase 12b wall {time.perf_counter() - t_phase:.3f} s")
+    if failed:
+        raise AssertionError("phase 12b failed: " + "; ".join(failed))
+    return dict(launches=launches, record=record)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)  # keep output if the run is cut
@@ -3090,6 +3405,10 @@ def main() -> int:
     del loop
     scenario_by_path, scenario_err = phase_scenarios(dev)
     ckpt = phase_checkpoint(dev, limits)
+    t12 = time.perf_counter()
+    training = phase_train(dev, limits)
+    grad = phase_grad(dev)
+    print(f"[12] phase 12 wall {time.perf_counter() - t12:.3f} s")
     by_path = {"quickstart_simulate": quick_launches,
                "catalog_simulate_fleet": fleet_launches,
                "figures_simulate": figure_launches,
@@ -3126,8 +3445,9 @@ def main() -> int:
     ]:
         launches, rec = plane[name]
         paths = {path: launches}
-        if name == "gf256_matmul":  # phase 11's encodes and degraded decodes
-            paths.update(checkpoint_save=ckpt["save"][0], checkpoint_restore=ckpt["restore"][0])
+        if name == "gf256_matmul":  # phases 11 and 12a's encodes and degraded decodes
+            paths.update(checkpoint_save=ckpt["save"][0], checkpoint_restore=ckpt["restore"][0],
+                         train_save=training["save"][0], train_restore=training["restore"][0])
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3143,18 +3463,25 @@ def main() -> int:
             "bound_by": rec["bound_by"],
             "library_ms": None,  # no PyTorch call computes a GF(256) product
         })
-        if name == "gf256_matmul":  # the largest checkpoint encode, on its own inputs
+        if name == "gf256_matmul":  # the largest checkpoint encodes, on their own inputs
             kernels[-1].update(ms_checkpoint_save=ckpt["save"][1]["ms"],
-                               bound_ms_checkpoint_save=ckpt["save"][1]["bound_ms"])
+                               bound_ms_checkpoint_save=ckpt["save"][1]["bound_ms"],
+                               ms_train_save=training["save"][1]["ms"],
+                               bound_ms_train_save=training["save"][1]["bound_ms"],
+                               ms_train_restore=training["restore"][1]["ms"],
+                               bound_ms_train_restore=training["restore"][1]["bound_ms"])
+    flash_paths = {"serve_prefill": serve_launches,
+                   "train_grad_O2": grad["launches"]["O2"],
+                   "train_grad_O3": grad["launches"]["O3"]}
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
         "parity": "atol 2e-5",
-        "launches": serve_launches,
-        "launches_by_path": {"serve_prefill": serve_launches},
-        "max_abs_err": max(flash_err, flash["max_abs_err"]),
+        "launches": sum(flash_paths.values()),
+        "launches_by_path": flash_paths,
+        "max_abs_err": max(flash_err, flash["max_abs_err"], grad["record"]["max_abs_err"]),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],
@@ -3163,6 +3490,14 @@ def main() -> int:
         "bound_fp32_ms": flash["bound_fp32_ms"],
         "bound_bytes_ms": flash["bound_bytes_ms"],
         "library_ms": flash["library_ms"],  # scaled_dot_product_attention, timed only
+        # phase 12b's (2, 2048, 9, 3, 64): the forward under autograd, and the
+        # Function's backward in torch ops (no kernel: the reference has none)
+        "ms_train_forward": grad["record"]["ms"],
+        "bound_ms_train_forward": grad["record"]["bound_ms"],
+        "library_ms_train_forward": grad["record"]["library_ms"],
+        "ms_backward": grad["record"]["backward_ms"],
+        "bound_ms_backward": grad["record"]["backward_bound_ms"],
+        "library_ms_forward_backward": grad["record"]["library_fwd_bwd_ms"],
     })
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(card)  # again, so that the end of the output names the card

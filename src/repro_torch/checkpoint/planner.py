@@ -12,12 +12,12 @@ to k_i nodes sampled with Theorem-1 exact marginals (Madow), i.e. the
 paper's probabilistic scheduling is literally the read path.
 
 A parameter tree is the nested dict / list / tuple of tensors the port's
-``Model`` holds. :func:`flatten_with_keys` walks and names its leaves
-exactly as the reference's ``jax.tree_util.tree_flatten_with_path`` and
-``keystr`` do (dict keys in sorted order, list and tuple items by index,
-``None`` holds no leaf, names like ``['stack']['period'][0]['attn']['wq']``),
-so groups, manifests and chunk files agree byte for byte between the
-packages.
+``Model`` holds, or a NamedTuple of such trees (the trainer's
+``TrainState``). ``repro_torch.tree.flatten_with_keys`` walks and names its
+leaves exactly as the reference's ``jax.tree_util.tree_flatten_with_path``
+and ``keystr`` do (names like ``['stack']['period'][0]['attn']['wq']`` or
+``.opt.m['embed']``), so groups, manifests and chunk files agree byte for
+byte between the packages.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ from repro_torch.core import (
     solve,
 )
 from repro_torch.storage.cluster import Cluster
+from repro_torch.tree import flatten_with_keys
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,40 +77,6 @@ class CheckpointPlan:
             leaves=[g.leaves for g in self.groups],
             node_ids=alive,
         )
-
-
-def _children(node: Any):
-    """``(key string, child)`` pairs in the reference's flattening order, or
-    None for a leaf."""
-    if isinstance(node, dict):
-        return [(f"[{key!r}]", node[key]) for key in sorted(node)]
-    if isinstance(node, (list, tuple)):
-        return [(f"[{i}]", child) for i, child in enumerate(node)]
-    return None
-
-
-def flatten_with_keys(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
-    """``(key, leaf)`` pairs of a parameter tree, in the reference's order
-    and with its ``keystr`` names; ``None`` holds no leaf."""
-    if tree is None:
-        return []
-    children = _children(tree)
-    if children is None:
-        return [(prefix, tree)]
-    return [pair for key, child in children for pair in flatten_with_keys(child, prefix + key)]
-
-
-def unflatten_like(template: Any, by_key: dict, prefix: str = "") -> Any:
-    """``template``'s structure with each leaf replaced by ``by_key[key]``."""
-    if template is None:
-        return None
-    if isinstance(template, dict):
-        return {key: unflatten_like(val, by_key, f"{prefix}[{key!r}]")
-                for key, val in template.items()}
-    if isinstance(template, (list, tuple)):
-        return type(template)(unflatten_like(val, by_key, f"{prefix}[{i}]")
-                              for i, val in enumerate(template))
-    return by_key[prefix]
 
 
 def leaf_nbytes(leaf: Any) -> int:

@@ -29,14 +29,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.storage import rs
+from repro_torch.tree import flatten_with_keys, unflatten_like
 
-from .planner import (
-    CheckpointPlan,
-    GroupPlan,
-    flatten_with_keys,
-    sample_read_set,
-    unflatten_like,
-)
+from .planner import CheckpointPlan, GroupPlan, sample_read_set
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

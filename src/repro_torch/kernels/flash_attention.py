@@ -1,7 +1,8 @@
-"""Causal / sliding-window GQA flash attention: a CUDA kernel and its plain twin.
+"""Causal / sliding-window GQA flash attention: a CUDA kernel, its plain twin
+and a gradient.
 
-Forward-only attention for q (B, Tq, H, hd) against k/v (B, Tk, KH, hd),
-with GQA groups G = H / KH: query head ``h`` reads KV head ``h // G``.
+Attention for q (B, Tq, H, hd) against k/v (B, Tk, KH, hd), with GQA
+groups G = H / KH: query head ``h`` reads KV head ``h // G``.
 
     s[iq, ik] = (q[iq] . k[ik]) * scale        (accumulated in float32)
     masked    = not (ik <= iq if causal) or not (ik > iq - window if window)
@@ -25,6 +26,15 @@ values, which is what an online softmax over all-NEG scores leaves.
   only to check the kernel.
 * :func:`flash_attention` keeps the reference's block rules and dispatches
   on where the tensors live. There is no fallback from one to the other.
+  It is a ``torch.autograd.Function``: the forward is kernel B4 or the
+  plain twin, and the backward is :func:`flash_attention_backward`.
+* :func:`flash_attention_backward` gives dq, dk and dv in torch ops, the
+  same code on both devices, as XLA differentiates the reference's
+  ``chunked_sdpa``: over key blocks it recomputes the row max and sum from
+  q . k^T, then per block P, dV = P^T dO, dS = P o (dO V^T - rowsum(dO o O)),
+  dQ += dS K scale and dK = dS^T Q scale, each summed over its GQA group,
+  under the forward's causal, window and padding masks. The reference has
+  no backward kernel, so none is written here.
 """
 from __future__ import annotations
 
@@ -180,6 +190,104 @@ def flash_attention_cuda(
     return out
 
 
+def _flash_forward(q, k, v, scale, causal, window, q_blk, k_blk) -> Tensor:
+    tkp = _blocks(q, k, v, causal, k_blk)
+    if q.is_cuda:
+        return flash_attention_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            scale=scale, causal=causal, window=window, k_pad=tkp - k.shape[1],
+        )
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, scale=scale, causal=causal, window=window, q_blk=q_blk, k_blk=k_blk
+        )
+    raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
+
+
+def flash_attention_backward(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    out: Tensor,
+    dout: Tensor,
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int | None = None,
+    k_blk: int = 512,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """dq, dk, dv of :func:`flash_attention` at ``out`` for the cotangent
+    ``dout``, in float32 over key blocks of ``min(k_blk, Tk)`` keys (all
+    queries at once), cast to the inputs' dtypes.
+
+    Keys are zero-padded as in the forward, and every score the forward
+    masked (NEG) gets no gradient; a row whose every key is masked spreads
+    its weight evenly over all keys, as the forward's online softmax does.
+    """
+    tkp = _blocks(q, k, v, causal, k_blk)
+    b, tq, h, hd = q.shape
+    tk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    k_blk = min(k_blk, tk)
+    kf, vf = k.float(), v.float()
+    if tkp > tk:
+        pad = (0, 0, 0, 0, 0, tkp - tk)
+        kf, vf = torch.nn.functional.pad(kf, pad), torch.nn.functional.pad(vf, pad)
+    qg = q.float().reshape(b, tq, kh, g, hd)
+    dog = dout.float().reshape(b, tq, kh, g, hd)
+    # rowsum(dO o O), (b, kh, g, tq)
+    delta = (dog * out.float().reshape(b, tq, kh, g, hd)).sum(-1).permute(0, 2, 3, 1)
+    iq = torch.arange(tq, device=q.device)[:, None]
+
+    def scores(k0: int) -> tuple[Tensor, Tensor]:
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf[:, k0:k0 + k_blk]) * scale
+        ik = torch.arange(k0, k0 + k_blk, device=q.device)[None, :]
+        mask = torch.ones((tq, k_blk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= ik <= iq
+        if window is not None:
+            mask &= ik > iq - window
+        return torch.where(mask, s, NEG), mask
+
+    m = torch.full((b, kh, g, tq), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kh, g, tq), dtype=torch.float32, device=q.device)
+    for k0 in range(0, tkp, k_blk):
+        s, _ = scores(k0)
+        m_new = torch.maximum(m, s.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
+        m = m_new
+    l = torch.clamp_min(l, 1e-30)
+
+    dq = torch.zeros_like(qg)
+    dk = torch.empty((b, tkp, kh, hd), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for k0 in range(0, tkp, k_blk):
+        s, mask = scores(k0)
+        p = torch.exp(s - m[..., None]) / l[..., None]
+        dv[:, k0:k0 + k_blk] = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf[:, k0:k0 + k_blk])
+        ds = torch.where(mask, p * (dp - delta[..., None]), 0.0) * scale
+        dq += torch.einsum("bkgqs,bskd->bqkgd", ds, kf[:, k0:k0 + k_blk])
+        dk[:, k0:k0 + k_blk] = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+    return (dq.reshape(b, tq, h, hd).to(q.dtype), dk[:, :tk].to(k.dtype),
+            dv[:, :tk].to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, q_blk, k_blk):
+        out = _flash_forward(q, k, v, scale, causal, window, q_blk, k_blk)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = dict(scale=scale, causal=causal, window=window, k_blk=k_blk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(
     q: Tensor,
     k: Tensor,
@@ -198,19 +306,10 @@ def flash_attention(
     ``ValueError`` for non-causal attention that would need key padding.
     CUDA tensors launch kernel B4 (which tiles by its own sizes and skips
     key tiles outside the causal / window band); CPU tensors run
-    :func:`flash_attention_plain`.
+    :func:`flash_attention_plain`. Under autograd the result has a
+    ``grad_fn`` whose backward is :func:`flash_attention_backward`.
     """
-    tkp = _blocks(q, k, v, causal, k_blk)
-    if q.is_cuda:
-        return flash_attention_cuda(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            scale=scale, causal=causal, window=window, k_pad=tkp - k.shape[1],
-        )
-    if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, scale=scale, causal=causal, window=window, q_blk=q_blk, k_blk=k_blk
-        )
-    raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
+    return _FlashAttention.apply(q, k, v, float(scale), causal, window, q_blk, k_blk)
 
 
 flash_attention_cuda.launches = 0

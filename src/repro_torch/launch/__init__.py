@@ -1,1 +1,2 @@
-"""Launchers: model building (``steps``) and the serving loop (``serve``)."""
+"""Launchers: model building and train steps (``steps``), the serving loop
+(``serve``) and the training loop (``train``)."""

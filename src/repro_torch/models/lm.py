@@ -1,14 +1,16 @@
-"""Top-level language model: embeddings, stack, head and the serve steps.
+"""Top-level language model: embeddings, stack, head, loss and the serve steps.
 
 The port of ``repro/models/lm.py`` for decoder-only models of the attention
 kinds. Batch dict keys, as in the reference:
 
-  forward / prefill: tokens (B,S) int [, positions]
-  decode:            token (B,) int, pos (B,) int
+  train / forward / prefill: tokens (B,S) int [, labels, positions]
+  decode:                    token (B,) int, pos (B,) int
 
-``loss`` (and its chunked cross entropy) waits for the training slice;
-encoder-decoder models and the VLM's ``patch_embeds`` wait for the rest of
-ROADMAP A20.
+``loss`` is the reference's, dense (float32 logsumexp) or chunked over the
+vocabulary (``vocab_chunk``), with ``remat`` on the stack's period layers.
+The MoE aux loss it adds is 0 for the attention kinds. Encoder-decoder
+models, the VLM's ``patch_embeds`` and M-RoPE, and MoE (with its aux loss)
+wait for the rest of ROADMAP A20.
 """
 from __future__ import annotations
 
@@ -18,9 +20,10 @@ from typing import Any
 import torch
 from torch import Tensor
 
+from .attention_opt import chunked_softmax_xent
 from .config import ModelConfig
 from .layers import Ctx, rmsnorm, rmsnorm_init
-from .stack import _check_kind, stack_apply, stack_init
+from .stack import REMAT, _check_kind, stack_apply, stack_init
 
 Params = dict[str, Any]
 
@@ -30,10 +33,12 @@ class Model:
     cfg: ModelConfig
     dtype: torch.dtype = torch.float32
     device: torch.device | str = "cuda"
+    remat: str = "none"  # "none" | "full" | "dots" (training only)
     attn_impl: str = "naive"  # "naive" | "chunked" (kernel B4)
     attn_q_blk: int = 1024
     attn_k_blk: int = 1024
     cache_update: str = "onehot"  # decode KV write: "onehot" | "dus"
+    vocab_chunk: int | None = None  # chunked CE (no (B,S,V) float32 logits)
 
     def __post_init__(self):
         cfg = self.cfg
@@ -46,6 +51,8 @@ class Model:
         ) if on]
         if unported:
             raise NotImplementedError(f"{', '.join(unported)}: not ported yet (ROADMAP A20)")
+        if self.remat not in REMAT:
+            raise ValueError(f"remat {self.remat!r} is not one of {REMAT}")
 
     # ------------------------------------------------------------- params
     def init(self, gen: torch.Generator) -> Params:
@@ -86,13 +93,39 @@ class Model:
         )
 
     # -------------------------------------------------------------- train
-    @torch.no_grad()
+    def _hidden(self, params: Params, batch: dict) -> Tensor:
+        """The stack's output (B,S,d) in train mode, before the final norm."""
+        x = self._embed(params, batch)
+        h, _ = stack_apply(params["stack"], x, self._ctx(batch, "train"), self.cfg,
+                           remat=self.remat)
+        return h
+
     def forward_logits(self, params: Params, batch: dict) -> Tensor:
         """Full-sequence logits (B,S,V). The reference also returns the MoE
         aux loss, which is 0 for the attention kinds and is dropped here."""
-        x = self._embed(params, batch)
-        h, _ = stack_apply(params["stack"], x, self._ctx(batch, "train"), self.cfg)
-        return self._head(params, h)
+        return self._head(params, self._hidden(params, batch))
+
+    def loss(self, params: Params, batch: dict) -> Tensor:
+        """Mean next-token cross entropy over all but the last position.
+
+        ``labels`` default to the tokens shifted left, padded with 0. The
+        reference adds the MoE aux loss, 0 for the attention kinds."""
+        labels = batch.get("labels")
+        if labels is None:
+            labels = torch.nn.functional.pad(batch["tokens"][:, 1:], (0, 1), value=0)
+        labels = labels.long()
+        if self.vocab_chunk is not None:
+            # never materialize (B,S,V) float32 logits
+            h = rmsnorm(params["ln_f"], self._hidden(params, batch), self.cfg.norm_eps)
+            w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+            ce_tok = chunked_softmax_xent(h, w, labels, chunk=self.vocab_chunk)
+        else:
+            logits = self.forward_logits(params, batch).float()
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+            ce_tok = torch.logsumexp(logits, dim=-1) - gold
+        mask = torch.ones_like(ce_tok)
+        mask[:, -1] = 0.0  # last position has no target
+        return torch.sum(ce_tok * mask) / torch.sum(mask)
 
     # -------------------------------------------------------------- serve
     @torch.no_grad()

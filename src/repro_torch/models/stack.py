@@ -7,15 +7,28 @@ per position of the repeating pattern, each stacked on a leading
 ``n_periods`` axis, so weights carry across one for one. Where the
 reference scans the period with ``lax.scan``, the port walks the layers in
 a Python loop and stacks each period position's caches on the same leading
-axis. Other kinds (MoE, MLA, RG-LRU, RWKV6, encoder and cross-attention
-blocks) raise ``NotImplementedError`` until ROADMAP A20 ports them.
+axis. In training, ``remat`` acts on each period layer as the reference's
+acts on its scan body: ``"full"`` recomputes the layer in the backward
+(``torch.utils.checkpoint``, non-reentrant) and ``"dots"`` keeps only the
+outputs of its plain matrix products (``aten.mm`` / ``addmm``, the dots
+with no batch dimensions that ``checkpoint_dots_with_no_batch_dims`` keeps)
+and recomputes the rest. Other kinds (MoE, MLA, RG-LRU, RWKV6, encoder and
+cross-attention blocks) raise ``NotImplementedError`` until ROADMAP A20
+ports them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch import Tensor
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from .config import ModelConfig
 from .layers import (
@@ -30,6 +43,12 @@ from .layers import (
 
 Params = dict[str, Any]
 PORTED_KINDS = ("attn", "dense", "local")
+REMAT = ("none", "full", "dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _check_kind(kind: str) -> None:
@@ -79,11 +98,16 @@ def _stack_trees(trees: list):
     return torch.stack(trees)
 
 
-def _row(tree, i: int):
-    """Entry ``i`` of a tree stacked on its leading axis."""
+def _unstack(tree) -> list:
+    """The entries of a tree stacked on its leading axis, one tree each.
+    One ``unbind`` a leaf, so a backward stacks each leaf's gradient once
+    (indexing the stack layer by layer would zero-fill a full-size gradient
+    a layer)."""
     if isinstance(tree, dict):
-        return {key: _row(val, i) for key, val in tree.items()}
-    return tree[i]
+        cols = {key: _unstack(val) for key, val in tree.items()}
+        n = len(next(iter(cols.values())))
+        return [{key: col[i] for key, col in cols.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 # ------------------------------------------------------------------- stack
@@ -104,15 +128,34 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
     return params
 
 
+def _period_layer(p_rows: list, x: Tensor, ctx: Ctx, cfg: ModelConfig, c_rows) -> tuple:
+    """One layer of the period: each position's block in turn."""
+    ncs = []
+    for pos, kind in enumerate(cfg.period):
+        x, nc = block_apply(p_rows[pos], kind, x, ctx, cfg, c_rows[pos] if c_rows else None)
+        ncs.append(nc)
+    return x, ncs
+
+
+def _remat_layer(p_rows: list, x: Tensor, ctx: Ctx, cfg: ModelConfig, remat: str) -> Tensor:
+    """A training period layer under ``remat`` "full" or "dots"."""
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                  if remat == "dots" else noop_context_fn)
+    return checkpoint(lambda x, p: _period_layer(p, x, ctx, cfg, None)[0], x, p_rows,
+                      use_reentrant=False, context_fn=context_fn)
+
+
 def stack_apply(
     params: Params,
     x: Tensor,
     ctx: Ctx,
     cfg: ModelConfig,
     caches: Params | None = None,
+    remat: str = "none",
 ) -> tuple[Tensor, Params | None]:
     """Run the full stack. Returns (x, new_caches); caches only in prefill
-    and decode, in the reference's layout."""
+    and decode, in the reference's layout. ``remat`` (one of ``REMAT``)
+    acts in train mode only."""
     want_cache = ctx.mode in ("prefill", "decode")
     new_caches: Params = {"prefix": [], "period": None, "suffix": []}
 
@@ -123,11 +166,16 @@ def stack_apply(
 
     if cfg.n_periods > 0:
         rows: list[list] = [[] for _ in cfg.period]
+        p_layers = [_unstack(p) for p in params["period"]]
+        c_layers = [_unstack(c) for c in caches["period"]] if caches else None
         for layer in range(cfg.n_periods):
-            for pos, kind in enumerate(cfg.period):
-                c = _row(caches["period"][pos], layer) if caches else None
-                p = _row(params["period"][pos], layer)
-                x, nc = block_apply(p, kind, x, ctx, cfg, c)
+            p_rows = [p[layer] for p in p_layers]
+            if remat != "none" and ctx.mode == "train":
+                x = _remat_layer(p_rows, x, ctx, cfg, remat)
+                continue
+            c_rows = [c[layer] for c in c_layers] if c_layers else None
+            x, ncs = _period_layer(p_rows, x, ctx, cfg, c_rows)
+            for pos, nc in enumerate(ncs):
                 rows[pos].append(nc)
         if want_cache:
             new_caches["period"] = tuple(_stack_trees(r) for r in rows)

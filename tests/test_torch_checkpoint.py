@@ -15,6 +15,11 @@ reference, on the CPU.
 * SmolLM-135M's full parameter tree (``meta`` tensors, no allocation)
   planned at ``benchmarks/checkpoint_catalogs.py``'s rule, as the
   reference plans it.
+* A trainer's whole ``TrainState`` (NamedTuples: ``.params``, ``.opt.step``,
+  ``.opt.m[...]``) of the smoke SmolLM after one reference train step:
+  leaf names, groups, manifests and chunk files byte for byte the
+  reference's, each package restoring the other's checkpoint bitwise into
+  its own NamedTuples, and ``params_from_numpy`` keeping an ``AdamWState``.
 
 The store's default ``auto`` backend runs B2's plain twin on CPU tensors;
 no test launches a kernel.
@@ -326,3 +331,59 @@ def test_full_train_state_roundtrip(clusters, tmp_path):
     got = store.restore(0, state)
     _leaves_equal(got, state)
     assert isinstance(got["params"]["stack"]["period"], list)
+
+
+def test_train_state_checkpoint_matches_reference_byte_for_byte(clusters, tmp_path):
+    from repro.configs.registry import get_smoke_config as ref_smoke
+    from repro.data.pipeline import SyntheticLM as RefSyntheticLM
+    from repro.launch import steps as RS
+    from repro.models import Model as RefModel
+    from repro.optim import AdamW, AdamWState
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim import AdamWState as PortAdamWState
+
+    cfg = ref_smoke("smollm-135m")
+    model, opt = RefModel(cfg), AdamW(lr=1e-3)
+    ref_params = model.init(jax.random.key(2))
+    ref_state = RS.TrainState(ref_params, opt.init(ref_params))
+    ref_state, _ = jax.jit(RS.make_train_step(model, opt))(
+        ref_state, RefSyntheticLM(cfg.vocab, 16, 2).batch_at(0))
+    numpy_state = jax.tree.map(np.asarray, ref_state)
+    opt_state = params_from_numpy(numpy_state.opt, device="cpu")
+    assert isinstance(opt_state, AdamWState) and opt_state._fields == ("step", "m", "v")
+    assert opt_state.step.dtype == torch.int32 and opt_state.step.shape == ()
+    state = TrainState(params_from_numpy(numpy_state.params, device="cpu"),
+                       PortAdamWState(*opt_state))
+
+    names = [k for k, _ in flatten_with_keys(state)]
+    assert names == [jax.tree_util.keystr(p)
+                     for p, _ in jax.tree_util.tree_flatten_with_path(ref_state)[0]]
+    assert names[0] == ".params['embed']" and ".opt.step" in names
+    assert ".opt.m['stack']['period'][0]['attn']['wq']" in names
+    kw = dict(group_mb=0.05, chunk_mb=0.01, theta=0.1)
+    assert PC.pack_groups(state, kw["group_mb"]) == RC.pack_groups(ref_state, kw["group_mb"])
+    ref_plan = RC.plan_for_params(ref_state, clusters[0], **kw)
+    _assert_plans_agree(PC.plan_for_params(state, clusters[1], **kw), ref_plan)
+    assert len(ref_plan.groups) > 3
+
+    port_plan = _as_port_plan(ref_plan)
+    ref_store = RC.ECCheckpointStore(tmp_path / "ref", ref_plan)
+    port_store = PC.ECCheckpointStore(tmp_path / "port", port_plan)
+    assert port_store.save(state, step=1) == ref_store.save(ref_state, step=1)
+    ref_files, port_files = _files(tmp_path / "ref"), _files(tmp_path / "port")
+    assert port_files.keys() == ref_files.keys()
+    for name, data in ref_files.items():
+        assert port_files[name] == data, name
+    leaves = json.loads(port_files["manifest_1.json"])["leaves"]
+    assert leaves[".opt.step"] == {"shape": [], "dtype": "int32"}
+
+    victim = ref_plan.groups[0].placement[0]  # the first group's first node
+    for store in (ref_store, port_store):
+        store.fail_node(victim)
+    us = _ref_uniforms(5, len(ref_plan.groups))
+    from_ref = PC.ECCheckpointStore(tmp_path / "ref", port_plan).restore(1, state, uniforms=us)
+    _leaves_equal(from_ref, state)
+    assert isinstance(from_ref, TrainState) and isinstance(from_ref.opt, PortAdamWState)
+    assert int(from_ref.opt.step) == 1
+    from_port = RC.ECCheckpointStore(tmp_path / "port", ref_plan).restore(1, ref_state, seed=5)
+    _ref_leaves_equal(from_port, state)

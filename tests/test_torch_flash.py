@@ -7,7 +7,16 @@ held to the reference's Pallas kernel in interpret mode, as
 ``tests/test_kernels.py::TestFlashAttention`` runs it, with that test's
 tolerances: atol 2e-5 in float32 (the two sum the scores in another order)
 and 3e-2 in bfloat16. Inputs are made with numpy from a seed.
+
+The wrapper is a ``torch.autograd.Function``; its backward
+(``flash_attention_backward``, torch ops over key blocks, the same code on
+both devices) is held to ``jax.grad`` of the reference's ``chunked_sdpa``
+(causal, windowed, GQA) at atol 1e-4, the tolerance of
+``tests/test_perf_opts.py::TestChunkedSDPA::test_grad_matches``, and to
+autograd through the plain twin where the reference's chunked path has no
+counterpart (key padding, Tq != Tk, rows with every key masked, bfloat16).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +27,7 @@ from repro.models.attention_opt import chunked_sdpa as ref_chunked_sdpa
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (
     flash_attention,
+    flash_attention_backward,
     flash_attention_cuda,
     flash_attention_plain,
 )
@@ -151,3 +161,77 @@ def test_kernel_refuses_cpu_tensors_and_other_widths():
         flash_attention_cuda(q, k, v, scale=0.3)
     with pytest.raises(ValueError, match="shapes"):
         flash_attention(q, k[:, :, :, :4], v, scale=0.3)
+
+
+# ------------------------------------------------------------------ backward
+
+
+def _grads(fn, q, k, v, dout):
+    """dq, dk, dv of ``sum(fn(q, k, v) * dout)`` by torch autograd."""
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = fn(qt, kt, vt)
+    assert out.grad_fn is not None
+    return torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(dout))
+
+
+@pytest.mark.parametrize(
+    "b,t,h,kh,hd,blk,window",
+    [(2, 40, 4, 2, 16, 8, None), (1, 64, 4, 2, 16, 16, 8), (2, 37, 6, 2, 8, 8, 12),
+     (1, 32, 4, 1, 16, 8, None), (1, 24, 2, 2, 8, 1024, None)],
+)
+def test_backward_matches_jax_grad_of_reference_chunked_sdpa(b, t, h, kh, hd, blk, window):
+    q, k, v = _qkv(t * 7 + h, b, t, h, kh, hd)
+    dout = np.random.default_rng(t).standard_normal(q.shape).astype(np.float32)
+    kw = dict(causal=True, window=window, q_blk=blk, k_blk=2 * blk)
+    loss = lambda q, k, v: jnp.sum(ref_chunked_sdpa(q, k, v, 0.25, **kw) * dout)
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = _grads(lambda q, k, v: chunked_sdpa(q, k, v, 0.25, **kw), q, k, v, dout)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize(
+    "tq,tk,window,causal",
+    [(24, 40, None, True), (40, 24, None, True), (40, 24, 8, True), (36, 36, 4, True),
+     (50, 50, 8, True), (32, 32, None, False)],
+)
+def test_backward_matches_autograd_through_the_plain_twin(tq, tk, window, causal):
+    """Key padding (k_blk 16 over 24, 36, 40 or 50 keys), Tq != Tk, rows whose
+    every key is masked (Tq > Tk with a window) and a non-causal call."""
+    q, k, v = _qkv(tq + tk, 2, tq, 6, 2, 16, tk=tk)
+    dout = np.random.default_rng(tq).standard_normal(q.shape).astype(np.float32)
+    kw = dict(scale=0.25, causal=causal, window=window, q_blk=16, k_blk=16)
+    got = _grads(lambda q, k, v: flash_attention(q, k, v, **kw), q, k, v, dout)
+    want = _grads(lambda q, k, v: flash_attention_plain(q, k, v, **kw), q, k, v, dout)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, err_msg=f"d{name}")
+
+
+def test_backward_in_bfloat16_follows_the_plain_twin():
+    q, k, v = _qkv(9, 1, 32, 4, 2, 16)
+    dout = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    kw = dict(scale=0.25, causal=True, window=12, q_blk=16, k_blk=16)
+    grads = []
+    for fn in (flash_attention, flash_attention_plain):
+        qt, kt, vt = bf(q), bf(k), bf(v)
+        out = fn(qt, kt, vt, **kw)
+        grads.append(torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(dout).to(out.dtype)))
+    for g, w in zip(*grads):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(), atol=5e-2, rtol=2e-2)
+
+
+def test_backward_calls_no_plain_twin(monkeypatch):
+    q, k, v = _qkv(4, 1, 16, 2, 1, 8)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention(qt, kt, vt, scale=0.3, q_blk=8, k_blk=8)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the backward called the plain twin")
+
+    monkeypatch.setattr(fa, "flash_attention_plain", refuse)
+    dq, dk, dv = torch.autograd.grad(out.sum(), (qt, kt, vt))
+    want = flash_attention_backward(qt.detach(), kt.detach(), vt.detach(), out.detach(),
+                                    torch.ones_like(out), scale=0.3, k_blk=8)
+    assert all(torch.equal(g, w) for g, w in zip((dq, dk, dv), want))

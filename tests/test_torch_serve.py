@@ -132,7 +132,7 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
-    assert {"scenarios", "checkpoint"} <= {path.parent.name for path in files}
+    assert {"scenarios", "checkpoint", "optim", "data"} <= {path.parent.name for path in files}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
