@@ -45,9 +45,12 @@ Phases, each raising on failure:
    windows and bf16 case of ``tests/test_kernels.py::TestFlashAttention``
    (atol 2e-5, bf16 3e-2), bf16 with a window at the other head widths
    the kernel is built for (8, 32, 64), unequal and ragged lengths, a
-   non-causal case, and SmolLM-135M's prefill shape (4, 2016, 9, 3, 64),
-   with that shape's 3xTF32 bound; non-causal attention that needs key
-   padding must raise ``ValueError``.
+   non-causal case, SmolLM-135M's prefill shape (4, 2016, 9, 3, 64), head
+   width 128 in float32 and bfloat16 at the GQA models' groups G = 2, 3,
+   6, 8 and 12, causal and windowed, at ragged lengths, and Phi-4-mini's
+   prefill shape (4, 2016, 24, 8, 128), with the two prefill shapes'
+   3xTF32 bounds; non-causal attention that needs key padding must raise
+   ``ValueError``.
 3. Quickstart twin: three files (k = 6, 7, 4) solved at theta = 0.5 and
    200, then simulated with 20000 requests; the simulated mean must stay
    within the bound x 1.05, the claim ``examples/quickstart.py`` asserts.
@@ -250,6 +253,35 @@ Phases, each raising on failure:
        atol 2e-5; B4's forward and the Function's backward (torch ops)
        timed with CUDA events on the path's inputs, beside their bounds and
        ``scaled_dot_product_attention``.
+13. The five GQA / MoE models of head width 128, at full width (their
+   registered configs), float32, random weights from a seed, at O3 (B4 in
+   every prefill and forward):
+   13a. ``serve("phi4-mini-3.8b", smoke=False)``: all 32 layers (3.84e9
+       parameters, 15.3 GB), phase 6's load (4 replicas, 8 batches of 4
+       prompts of 2016 tokens, 32 greedy tokens). Every prefill must launch
+       B4 once a layer; every B4 call is held to the plain twin as it is
+       made (keeping them all would take 76 GB); routes inside pi's
+       support; a naive-attention prefill within 1e-3. Then a prefill and
+       its 32 decode steps are timed without the holds, and B4 on the
+       path's (4, 2016, 24, 8, 128) beside its 3xTF32 bound (0.606 ms) and
+       ``scaled_dot_product_attention``.
+   13b. Gemma3-27B (8 of 62 layers: one period of 5 local + 1 global and
+       the two trailing local layers; window 1024, so the local caches
+       roll; q/k norms; tied head), the Qwen3 MoE (4 of 48 layers; 128
+       experts, top 8), StarCoder2-15B (4 of 40; untied head, G = 12) and
+       Qwen2-VL-2B (all 28 layers; 4 patch embeddings and (3, B, S)
+       positions): ``forward_logits`` of 2 x 2048 tokens, a prefill of the
+       first 2016 and 32 decode steps fed the sequence's next tokens. The
+       prefill's logits and each step's are held to the forward's at
+       ``tests/test_models.py``'s tolerance (rtol 2e-2, atol 2e-3); B4
+       launches once a layer in the forward and in the prefill, and every
+       call is held to the plain twin. For the MoE: each token's top-8 set
+       in the forward against the prefill's and the steps' (a token whose
+       set differs is counted, printed and left out of the comparison),
+       the prefill's aux loss and per-expert load by layer, and one MoE
+       layer timed at 2 x 2016 tokens and at a decode step, with its host
+       syncs (one a layer call: the group sizes). Each model's forward,
+       prefill and decode ms/token; the phase's wall.
 
 The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
 the card could take for the work: each input read once and each output
@@ -266,10 +298,10 @@ The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 12 (4b included) every launch count is set to 0 just before
+In phases 3 to 13 (4b included) every launch count is set to 0 just before
 each main-path call (simulator, encode, decode, prefill, serving simulation,
 replan, scenario run, checkpoint save and restore, training run, loss and
-gradients) and read just after;
+gradients, forward) and read just after;
 each call must have launched its kernel. Every kernel call those paths
 make is recorded, and its output is held against the plain twin on the
 same inputs, B1's with the carried state the call passed: bitwise for B1
@@ -355,7 +387,7 @@ from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import build_model, loss_and_grads  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import lm, moe  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AdaptiveReplanner,
@@ -527,6 +559,21 @@ TRAIN_LOSS_DROP = 0.5  # examples/train_lm.py's assertion, in both runs
 # and O3 (O2 with each layer recomputed in the backward); the loss within
 # tests/test_perf_opts.py's rtol, every gradient leaf within a relative L2
 GRAD_BATCH, GRAD_SEQ, GRAD_SEED, GRAD_LOSS_RTOL, GRAD_REL_L2 = 2, 2048, 0, 2e-4, 1e-3
+# phase 13: the five GQA / MoE models of head width 128 at full width (their
+# registered configs). 13a serves Phi-4-mini at full depth through serve() with
+# phase 6's load; 13b runs the other four cut in depth only (Gemma3: one period
+# of 5 local + 1 global layers and the two suffix layers), a prefill of 2 x 2016
+# tokens and 32 decode steps fed the sequence's own next tokens, each step's
+# logits held to forward_logits of the whole 2 x 2048 sequence at O3 within
+# tests/test_models.py's tolerance. Qwen2-VL's batch carries 4 patch
+# embeddings and (3, B, S) positions, as tests/test_models.py:31-35 builds them.
+PHI4_FLASH_SHAPE = (4, 2016, 24, 8, 128)  # Phi-4-mini's prefill in 13a: (B, T, H, KH, hd)
+GQA_DEPTH = {"gemma3-27b": 8, "qwen3-moe-30b-a3b": 4, "starcoder2-15b": 4, "qwen2-vl-2b": 28}
+GQA_BATCH, GQA_PREFILL, GQA_DECODE, GQA_PATCHES, GQA_SEED = 2, 2016, 32, 4, 0
+GQA_RTOL, GQA_ATOL = 2e-2, 2e-3
+# 2c's hd = 128 cases (T, H, KH, window): G = 2, 3, 6, 8, 12 and ragged T
+GQA_FLASH_CASES = [(96, 4, 2, None), (130, 6, 2, 40), (77, 24, 4, None), (200, 16, 2, 64),
+                   (301, 48, 4, None), (160, 24, 8, 100), (257, 12, 1, 31)]
 PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
@@ -1102,6 +1149,16 @@ def phase_flash_vs_plain(dev) -> float:
                   dict(scale=hd**-0.5, q_blk=1024, k_blk=2048), 2e-5))
     cases.append(("hd=64 window 300, ragged", qkv_on(gen, dev, 1, 1000, h, kh, hd),
                   dict(scale=hd**-0.5, window=300, q_blk=512, k_blk=512), 2e-5))
+    # hd = 128, the GQA models' width: their groups G = 2, 3, 6, 8, 12, causal
+    # and windowed, ragged T, float32 and bfloat16, and Phi-4-mini's prefill
+    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        cases += [(f"hd=128 {str(dtype)[6:]} G={h // kh} T={t}" + (f" window {w}" if w else ""),
+                   qkv_on(gen, dev, 2, t, h, kh, 128, dtype=dtype),
+                   dict(scale=128**-0.5, window=w, q_blk=1024, k_blk=2048), atol)
+                  for t, h, kh, w in GQA_FLASH_CASES]
+    b, t, h, kh, hd = PHI4_FLASH_SHAPE
+    cases.append((f"Phi-4-mini prefill {PHI4_FLASH_SHAPE}", qkv_on(gen, dev, b, t, h, kh, hd),
+                  dict(scale=hd**-0.5, q_blk=1024, k_blk=2048), 2e-5))
     worst = 0.0
     for label, (q, k, v), kw, atol in cases:
         before = fa.flash_attention_cuda.launches
@@ -1117,9 +1174,10 @@ def phase_flash_vs_plain(dev) -> float:
         if q.dtype == torch.float32:
             worst = max(worst, err)
         print(f"[2c] B4 {label}: kernel == plain twin, max_abs_err {err:.3g} (atol {atol})")
-        if label.startswith("SmolLM"):
+        if label.startswith(("SmolLM", "Phi-4")):
             fb = flash_bound(q, k)
-            print(f"[2c] B4 {FLASH_SHAPE} bound {fb['bound_ms']:.4f} ms (3xTF32, "
+            print(f"[2c] B4 {tuple(q.shape)} x {tuple(k.shape)} bound {fb['bound_ms']:.4f} ms "
+                  f"(3xTF32, "
                   f"{fb['bound_flop']:.4g} FLOP x {TF32_PASSES}); one TF32 pass "
                   f"{fb['bound_tf32_ms']:.4f} ms, float32 off the tensor cores "
                   f"{fb['bound_fp32_ms']:.4f} ms, bytes {fb['bound_bytes_ms']:.4f} ms")
@@ -1638,10 +1696,18 @@ def phase_serve(dev, limits: dict) -> tuple[int, dict]:
           f"{SERVE['batch']}; batch latency mean {lat.mean() * 1e3:.3f} ms, "
           f"p95 {np.quantile(lat, 0.95) * 1e3:.3f} ms; peak {peak_gib:.2f} GiB")
 
-    # B4 on the path's own inputs, beside its plain twin and the library call
     args, kwargs, got = calls[-1]
+    record = time_flash("6", args, kwargs, got, dict(max_abs_err=worst, plain_ms=plain_ms),
+                        limits)
+    del calls
+    return sum(prefill_launches), record
+
+
+def time_flash(tag: str, args, kwargs, got, record: dict, limits: dict) -> dict:
+    """B4 on a main path's own inputs (one call's), beside its plain twin's
+    time (in ``record``), ``scaled_dot_product_attention`` and its bound."""
     q, k, v = args
-    record = dict(max_abs_err=worst, plain_ms=plain_ms, **flash_bound(q, k))
+    record.update(flash_bound(q, k))
     fa.flash_attention(q, k, v, **kwargs)  # warm
     record["ms"], _ = cuda_ms(lambda: fa.flash_attention(q, k, v, **kwargs), reps=5)
     g = q.shape[2] // k.shape[2]
@@ -1652,8 +1718,9 @@ def phase_serve(dev, limits: dict) -> tuple[int, dict]:
     sdpa()  # warm
     record["library_ms"], lib_out = cuda_ms(sdpa, reps=5)
     lib_err = float((lib_out.transpose(1, 2) - got).abs().max())
-    print(f"[6] B4 {tuple(q.shape)} x {tuple(k.shape)} on the path's inputs: kernel "
-          f"{record['ms']:.4f} ms, plain twin {plain_ms:.3f} ms, "
+    del qt, kt, vt, lib_out
+    print(f"[{tag}] B4 {tuple(q.shape)} x {tuple(k.shape)} on the path's inputs: kernel "
+          f"{record['ms']:.4f} ms, plain twin {record['plain_ms']:.3f} ms, "
           f"scaled_dot_product_attention {record['library_ms']:.4f} ms "
           f"(|diff| {lib_err:.3g}), bound {record['bound_ms']:.4f} ms "
           f"({TF32_PASSES} TF32 passes of {record['bound_flop']:.4g} FLOP, {record['bound_by']}; "
@@ -1662,11 +1729,10 @@ def phase_serve(dev, limits: dict) -> tuple[int, dict]:
           f"{record['bound_fp32_ms']:.4f} ms, bytes {record['bound_bytes_ms']:.4f} ms "
           f"({record['bound_gb']:.4f} GB)")
     at_mma = TF32_PASSES * record["bound_flop"] / (limits["mma_tflops"] * 1e12) * 1e3
-    print(f"[6] B4's {TF32_PASSES} TF32 passes at the {limits['mma_tflops']:.1f} TFLOP/s "
+    print(f"[{tag}] B4's {TF32_PASSES} TF32 passes at the {limits['mma_tflops']:.1f} TFLOP/s "
           f"mma.sync reached in phase 1: {at_mma:.4f} ms "
           f"({100 * at_mma / record['ms']:.1f} % of B4's time)")
-    del calls
-    return sum(prefill_launches), record
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -3372,6 +3438,308 @@ def phase_grad(dev) -> dict:
     return dict(launches=launches, record=record)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the GQA / MoE models of head width 128 at full width.
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def held_flash(atol: float = 2e-5):
+    """Hold every B4 call a main path makes against the plain twin as it is
+    made, and keep only its error: at Phi-4-mini's width the 288 calls of
+    serving hold 76 GB of inputs and outputs. The record keeps the count,
+    the worst error, the twin's time on the last call and the last call."""
+    fn = fa.flash_attention
+    record = dict(calls=0, max_abs_err=0.0, plain_ms=0.0, last=None)
+
+    def holder(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        record["plain_ms"], want = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs),
+                                           reps=1)
+        err = float((out.float() - want.float()).abs().max())
+        if not err <= atol:
+            raise AssertionError(f"B4 {tuple(args[0].shape)} differs from plain twin by {err}")
+        record["calls"] += 1
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        record["last"] = (args, kwargs, out)
+        return out
+
+    fa.flash_attention = holder
+    try:
+        yield record
+    finally:
+        fa.flash_attention = fn
+
+
+def phase_phi4_serve(dev, limits: dict) -> tuple[int, dict]:
+    """13a: Phi-4-mini at full width and depth through ``serve`` with phase
+    6's load, every B4 call held as it is made; then a prefill and its
+    decode steps timed without the holds, a naive-attention prefill on the
+    same weights and tokens, and B4 timed on the path's inputs."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_launches = []
+    prefill = lm.Model.prefill
+
+    def counted_prefill(self, *args, **kwargs):
+        for counter in COUNTERS.values():
+            counter.launches = 0
+        out = prefill(self, *args, **kwargs)
+        prefill_launches.append(COUNTERS["flash_attention"].launches)
+        return out
+
+    lm.Model.prefill = counted_prefill
+    try:
+        with held_flash() as held:
+            run = serve("phi4-mini-3.8b", smoke=False, device=dev, **SERVE)
+    finally:
+        lm.Model.prefill = prefill
+    serve_s = time.perf_counter() - t0
+    cfg = run.model.cfg
+    n_params = sum(x.numel() for x in tree_leaves(run.params))
+    print(f"[13a] serve('phi4-mini-3.8b', smoke=False): {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim_}, "
+          f"{n_params:.4g} parameters ({4 * n_params / 1e9:.2f} GB float32); serve wall "
+          f"{serve_s:.3f} s with every B4 call held as it was made")
+    if prefill_launches != [cfg.n_layers] * (SERVE["n_batches"] + 1):
+        raise AssertionError(f"13a B4 launches per prefill {prefill_launches}, "
+                             f"expected {cfg.n_layers} for each")
+    if held["calls"] != sum(prefill_launches):
+        raise AssertionError(f"13a held {held['calls']} B4 calls of {sum(prefill_launches)}")
+    print(f"[13a] {held['calls']} B4 calls of the serve path == plain twin, max_abs_err "
+          f"{held['max_abs_err']:.3g}")
+    pi = run.router.pi[0]
+    if not np.isfinite(run.router.latency_bound):
+        raise AssertionError(f"13a plan latency bound {run.router.latency_bound}")
+    if any(pi[j] <= 0 for r in run.replicas for j in r):
+        raise AssertionError(f"13a routed outside pi's support: {run.replicas}, pi {pi}")
+    for toks in run.tokens:
+        if toks.shape != (SERVE["batch"], SERVE["gen_len"] + 1) or not (
+                (toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"13a generated tokens {tuple(toks.shape)} out of range")
+
+    # a prefill and its decode steps without the holds; the naive prefill
+    cache_len = SERVE["prompt_len"] + SERVE["gen_len"]
+    batch = {"tokens": run.prompts[0]}
+    prefill_s, (logits, caches) = best_wall(
+        lambda: run.model.prefill(run.params, batch, cache_len=cache_len), reps=1)
+    tok = torch.argmax(logits, -1)
+    pos = lambda p: torch.full((SERVE["batch"],), p, dtype=torch.int64, device=dev)
+
+    def decode():
+        nonlocal caches, tok
+        for t in range(SERVE["gen_len"]):
+            out, caches = run.model.decode_step(run.params, caches,
+                                                {"token": tok, "pos": pos(SERVE["prompt_len"] + t)})
+            tok = torch.argmax(out, -1)
+
+    decode_s, _ = best_wall(decode, reps=1)
+    del caches
+    naive = dataclasses.replace(run.model, attn_impl="naive")
+    naive_logits, _ = naive.prefill(run.params, batch, cache_len=cache_len)
+    logit_err = float((logits - naive_logits).abs().max())
+    if not (logit_err <= 1e-3 and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"13a naive and B4 prefill logits differ by {logit_err}")
+    tokens = SERVE["batch"] * SERVE["prompt_len"]
+    lat = np.asarray(run.latencies)
+    print(f"[13a] naive vs B4 prefill last-position logits: max_abs_err {logit_err:.3g}; "
+          f"routes {run.replicas} inside pi's support {np.round(pi, 3)}; without the holds: "
+          f"prefill {prefill_s * 1e3:.3f} ms per {tokens}-token batch "
+          f"({tokens / prefill_s:.6g} tokens/s), decode "
+          f"{decode_s / SERVE['gen_len'] * 1e3:.3f} ms/token at batch {SERVE['batch']}; "
+          f"serve's batch latency (holds included) mean {lat.mean() * 1e3:.3f} ms; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    args, kwargs, got = held.pop("last")
+    record = time_flash("13a", args, kwargs, got, held, limits)
+    record.update(prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s / SERVE["gen_len"] * 1e3)
+    del run, naive, args, got
+    torch.cuda.empty_cache()
+    print(f"[13a] phase 13a wall {time.perf_counter() - t0:.3f} s")
+    return sum(prefill_launches), record
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Record every MoE routing call: its tokens' top-k experts and its aux
+    loss, in call order."""
+    fn = moe._route
+    routes = []
+
+    def recorder(x2d, router, mc):
+        out = fn(x2d, router, mc)
+        routes.append((out[1], out[2]))
+        return out
+
+    moe._route = recorder
+    try:
+        yield routes
+    finally:
+        moe._route = fn
+
+
+def compare_routes(n_layers: int, fwd, pre, dec) -> set:
+    """The (batch row, position) pairs whose top-k expert set differs, at any
+    layer, between the forward of the whole sequence and the prefill or the
+    decode step of that position."""
+    differ = set()
+    for layer in range(n_layers):
+        full = torch.sort(fwd[layer][0].reshape(GQA_BATCH, -1, fwd[layer][0].shape[-1]), -1)[0]
+        ours = [torch.sort(pre[layer][0].reshape(GQA_BATCH, GQA_PREFILL, -1), -1)[0]]
+        ours += [torch.sort(step[layer][0].reshape(GQA_BATCH, 1, -1), -1)[0] for step in dec]
+        mismatch = (torch.cat(ours, 1) != full).any(-1).nonzero().tolist()
+        differ.update(map(tuple, mismatch))
+    return differ
+
+
+def gqa_model_run(arch: str, dev) -> dict:
+    """13b for one model: forward of 2 x 2048 tokens at O3, prefill of the
+    first 2016 and 32 decode steps fed the sequence's next tokens; the
+    prefill's and each step's logits held to the forward's."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full_cfg = get_config(arch)
+    cfg = dataclasses.replace(full_cfg, n_layers=GQA_DEPTH[arch])  # cut in depth only
+    model = build_model(cfg, dtype=torch.float32, remat="none", opt="O3", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(GQA_SEED))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(GQA_SEED + 1)
+    s = GQA_PREFILL + GQA_DECODE
+    tokens = torch.randint(0, cfg.vocab, (GQA_BATCH, s), generator=gen, device=dev)
+    batch = {"tokens": tokens}
+    if cfg.mrope_sections is not None:
+        batch["patch_embeds"] = torch.randn((GQA_BATCH, GQA_PATCHES, cfg.d_model),
+                                            generator=gen, device=dev) * 0.1
+        batch["positions"] = torch.arange(s, device=dev)[None, None].expand(3, GQA_BATCH, s)
+    pre = {k: (v[..., :GQA_PREFILL] if k in ("tokens", "positions") else v)
+           for k, v in batch.items()}
+    cut = f"{cfg.n_layers} of {full_cfg.n_layers} layers" + (
+        "" if cfg.n_layers < full_cfg.n_layers else " (full depth)")
+    print(f"[13b] {arch}: {cut}, {cfg.layer_kinds.count('local')} local, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim_}, vocab "
+          f"{cfg.vocab}, {n_params:.4g} parameters ({4 * n_params / 1e9:.2f} GB float32)")
+    attn_layers = cfg.n_layers
+    syncs0 = moe._expert_compute.host_syncs
+    with torch.no_grad(), recorded(fa, "flash_attention") as calls, \
+            recorded_routes() as routes:
+        fwd_s, (full, fwd_launches) = best_wall(lambda: counted(
+            f"13b {arch} forward", lambda: model.forward_logits(params, batch),
+            "flash_attention"), reps=1)
+        fwd_routes = routes[:]
+        prefill_s, ((logits, caches), pre_launches) = best_wall(lambda: counted(
+            f"13b {arch} prefill", lambda: model.prefill(params, pre, cache_len=s),
+            "flash_attention"), reps=1)
+        pre_routes = routes[len(fwd_routes):]
+        outs = [logits]
+
+        def decode():
+            nonlocal caches
+            for t in range(GQA_PREFILL, s):
+                step = {"token": tokens[:, t],
+                        "pos": torch.full((GQA_BATCH,), t, dtype=torch.int64, device=dev)}
+                out, caches = model.decode_step(params, caches, step)
+                outs.append(out)
+
+        decode_s, _ = best_wall(decode, reps=1)
+        dec_routes = routes[len(fwd_routes) + len(pre_routes):]
+    syncs = moe._expert_compute.host_syncs - syncs0
+    del caches
+    if fwd_launches != attn_layers or pre_launches != attn_layers:
+        raise AssertionError(f"13b {arch}: B4 launches forward {fwd_launches}, prefill "
+                             f"{pre_launches}, expected {attn_layers}")
+    result = dict(launches=fwd_launches + pre_launches, params=n_params,
+                  prefill_ms=prefill_s * 1e3, forward_ms=fwd_s * 1e3,
+                  decode_ms_per_token=decode_s / GQA_DECODE * 1e3, host_syncs=syncs)
+
+    # the expert sets of the forward against the prefill's and the steps'
+    differ = set()
+    if cfg.moe is not None:
+        n_moe = cfg.layer_kinds.count("moe")
+        dec_steps = [dec_routes[i * n_moe:(i + 1) * n_moe] for i in range(GQA_DECODE)]
+        differ = compare_routes(n_moe, fwd_routes, pre_routes, dec_steps)
+        load = torch.stack([torch.bincount(e.reshape(-1), minlength=cfg.moe.n_experts)
+                            for e, _ in pre_routes])
+        aux = [float(a) for _, a in pre_routes]
+        print(f"[13b] {arch} prefill routing ({GQA_BATCH} x {GQA_PREFILL} tokens, top "
+              f"{cfg.moe.top_k} of {cfg.moe.n_experts}): aux loss by layer "
+              f"{[round(a, 7) for a in aux]} (sum {sum(aux):.7f}); per-expert load by layer, "
+              f"min / median / max: {[(int(r.min()), int(r.median()), int(r.max())) for r in load]}; "
+              f"layer 0's load {load[0].tolist()}")
+        print(f"[13b] {arch}: {len(differ)} (row, position) pairs whose top-{cfg.moe.top_k} "
+              f"set differs between the forward and the prefill or decode path"
+              + (f": {sorted(differ)}" if differ else ""))
+        result.update(aux=sum(aux), routes_differ=len(differ))
+
+    # the prefill's logits (position 2015) and each step's against the forward
+    worst, worst_excess = 0.0, 0.0
+    for j, out in enumerate(outs):
+        position = GQA_PREFILL - 1 + j
+        rows = [r for r in range(GQA_BATCH) if (r, position) not in differ]
+        got, want = out[rows], full[rows, position]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"13b {arch}: non-finite logits at position {position}")
+        err = (got - want).abs()
+        worst = max(worst, float(err.max()))
+        worst_excess = max(worst_excess, float((err / (GQA_ATOL + GQA_RTOL * want.abs())).max()))
+    result.update(max_abs_err_logits=worst)
+    print(f"[13b] {arch}: prefill + {GQA_DECODE} decode steps vs forward_logits of the whole "
+          f"sequence: max |diff| {worst:.3g}, at most {worst_excess:.3g} of rtol {GQA_RTOL} / "
+          f"atol {GQA_ATOL}")
+    if not worst_excess <= 1.0:
+        raise AssertionError(f"13b {arch}: decode differs from teacher forcing "
+                             f"({worst_excess:.3g} of the tolerance)")
+    del full, outs
+
+    # every B4 call of the path against the plain twin on its inputs
+    flash_err = 0.0
+    for args, kwargs, got in calls:
+        plain_ms, want = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs), reps=1)
+        flash_err = max(flash_err, float((got - want).abs().max()))
+    del want
+    if not flash_err <= 2e-5:
+        raise AssertionError(f"13b {arch}: B4 differs from plain twin by {flash_err}")
+    result.update(max_abs_err=flash_err)
+    q, k = calls[-1][0][:2]
+    print(f"[13b] {arch}: {len(calls)} B4 calls (forward and prefill, {tuple(q.shape)} x "
+          f"{tuple(k.shape)} the last) == plain twin, max_abs_err {flash_err:.3g}")
+    del calls
+
+    if cfg.moe is not None:  # one MoE layer alone, at the prefill's and a step's tokens
+        p = params["stack"]["period"][0]["moe"]
+        p = {key: val[0] for key, val in p.items()}
+        h = torch.randn((GQA_BATCH, GQA_PREFILL, cfg.d_model), generator=gen, device=dev)
+        with torch.no_grad():
+            moe.moe_apply(p, h, cfg)  # warm
+            n0 = moe._expert_compute.host_syncs
+            result["moe_prefill_ms"], _ = cuda_ms(lambda: moe.moe_apply(p, h, cfg), reps=3)
+            result["moe_decode_ms"], _ = cuda_ms(lambda: moe.moe_apply(p, h[:, :1], cfg), reps=5)
+            per_call = (moe._expert_compute.host_syncs - n0) / 8
+        print(f"[13b] {arch}: one MoE layer at {GQA_BATCH} x {GQA_PREFILL} tokens "
+              f"{result['moe_prefill_ms']:.3f} ms, at {GQA_BATCH} x 1 (a decode step) "
+              f"{result['moe_decode_ms']:.3f} ms; {per_call:g} host sync a layer call, "
+              f"{syncs} in this model's forward, prefill and {GQA_DECODE} steps")
+    print(f"[13b] {arch}: forward {fwd_s * 1e3:.3f} ms ({GQA_BATCH} x {s} tokens), prefill "
+          f"{prefill_s * 1e3:.3f} ms ({GQA_BATCH} x {GQA_PREFILL}), decode "
+          f"{decode_s / GQA_DECODE * 1e3:.3f} ms/token at batch {GQA_BATCH}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall "
+          f"{time.perf_counter() - t0:.3f} s")
+    del params, model
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_gqa(dev, limits: dict) -> dict:
+    """Phase 13: 13a Phi-4-mini served at full width and depth, 13b the
+    other four models at full width against teacher forcing."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches, record = phase_phi4_serve(dev, limits)
+    models = {arch: gqa_model_run(arch, dev) for arch in GQA_DEPTH}
+    print(f"[13] phase 13 wall {time.perf_counter() - t0:.3f} s")
+    return dict(launches=launches, record=record, models=models)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)  # keep output if the run is cut
@@ -3409,6 +3777,7 @@ def main() -> int:
     training = phase_train(dev, limits)
     grad = phase_grad(dev)
     print(f"[12] phase 12 wall {time.perf_counter() - t12:.3f} s")
+    gqa = phase_gqa(dev, limits)
     by_path = {"quickstart_simulate": quick_launches,
                "catalog_simulate_fleet": fleet_launches,
                "figures_simulate": figure_launches,
@@ -3472,7 +3841,11 @@ def main() -> int:
                                bound_ms_train_restore=training["restore"][1]["bound_ms"])
     flash_paths = {"serve_prefill": serve_launches,
                    "train_grad_O2": grad["launches"]["O2"],
-                   "train_grad_O3": grad["launches"]["O3"]}
+                   "train_grad_O3": grad["launches"]["O3"],
+                   "phi4_serve_prefill": gqa["launches"],
+                   **{f"{arch}_forward_prefill": run["launches"]
+                      for arch, run in gqa["models"].items()}}
+    phi4 = gqa["record"]
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
@@ -3481,7 +3854,9 @@ def main() -> int:
         "parity": "atol 2e-5",
         "launches": sum(flash_paths.values()),
         "launches_by_path": flash_paths,
-        "max_abs_err": max(flash_err, flash["max_abs_err"], grad["record"]["max_abs_err"]),
+        "max_abs_err": max(flash_err, flash["max_abs_err"], grad["record"]["max_abs_err"],
+                           phi4["max_abs_err"],
+                           *(run["max_abs_err"] for run in gqa["models"].values())),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],
@@ -3498,6 +3873,12 @@ def main() -> int:
         "ms_backward": grad["record"]["backward_ms"],
         "bound_ms_backward": grad["record"]["backward_bound_ms"],
         "library_ms_forward_backward": grad["record"]["library_fwd_bwd_ms"],
+        # phase 13a's hd = 128 float32 instance at Phi-4-mini's (4, 2016, 24, 8, 128)
+        "ms_hd128": phi4["ms"],
+        "plain_ms_hd128": phi4["plain_ms"],
+        "bound_ms_hd128": phi4["bound_ms"],
+        "bound_by_hd128": phi4["bound_by"],
+        "library_ms_hd128": phi4["library_ms"],
     })
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(card)  # again, so that the end of the output names the card

@@ -1,18 +1,34 @@
 """Architecture registry: ``get_config(arch_id)`` / ``ARCHS``.
 
 The reference registers ten architectures. The port builds those whose
-layer kinds it has ported; so far that is SmolLM-135M, a plain dense GQA
-stack. The other nine raise ``KeyError`` naming ROADMAP A20 (their MoE,
-MLA, RG-LRU, RWKV6, encoder-decoder, M-RoPE and local layers come with
-it); a name neither package knows raises as in the reference.
+layer kinds it has ported: SmolLM-135M and the five GQA models of head
+width 128 (StarCoder2, Phi-4-mini, Gemma3 with its q/k norm and local
+layers, the Qwen3 MoE, Qwen2-VL with M-RoPE). The other four raise
+``KeyError`` naming ROADMAP A20 (their MLA, RG-LRU, RWKV6 and
+encoder-decoder layers come with it); a name neither package knows raises
+as in the reference.
 """
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import smollm_135m
+from . import (
+    gemma3_27b,
+    phi4_mini_3p8b,
+    qwen2_vl_2b,
+    qwen3_moe_30b_a3b,
+    smollm_135m,
+    starcoder2_15b,
+)
 
-_MODULES = {"smollm-135m": smollm_135m}
+_MODULES = {
+    "smollm-135m": smollm_135m,
+    "starcoder2-15b": starcoder2_15b,
+    "phi4-mini-3.8b": phi4_mini_3p8b,
+    "gemma3-27b": gemma3_27b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+    "qwen2-vl-2b": qwen2_vl_2b,
+}
 
 ARCHS = (
     "smollm-135m",

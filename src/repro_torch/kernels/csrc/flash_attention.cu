@@ -57,8 +57,9 @@
 // - Bank conflicts: K and V rows are padded to hd + 4 floats (hd + 8
 //   bfloat16, 16 bytes). K's B fragment reads row 8nt+g, column 8kk+t,
 //   and V's reads rows 2t, 2t+1, column g; with that stride the 32 lanes
-//   of a float32 read hit 32 distinct banks for every hd in {8, 16, 32, 64}.
-// - hd in {8, 16, 32, 64} are all instantiated. At hd = 8 a float32
+//   of a float32 read hit 32 distinct banks for every hd in
+//   {8, 16, 32, 64, 128}.
+// - hd in {8, 16, 32, 64, 128} are all instantiated. At hd = 8 a float32
 //   product is one k-step; the bfloat16 k16 step zero-fills columns >= hd.
 // - Ragged T = 2016 with G = 3 is 6048 rows, 94.5 blocks of 64: the last
 //   block's rows past Tq compute and never store.
@@ -74,6 +75,14 @@
 //   spilled and ran slower, so the cap is 255 (__launch_bounds__(128, 2)):
 //   2 blocks of 4 warps an SM. `ptxas -v` reports registers and spills for
 //   every instance at build; none spills.
+// - Registers and shared memory at hd = 128 (the GQA models' width): Q big
+//   is 64 registers, O 64 and a tile's P V 64. A float32 ring of 64-key
+//   tiles would take 135 KB, plus Q small's 32 KB: one block an SM, and S
+//   would be 32 registers. The key tile there is 32 keys: 98 KB, two
+//   blocks an SM, S 16 registers, and no spill at 255 registers. At
+//   Phi-4-mini's prefill (tools/b4_hd128_variants.py) 64-key tiles ran
+//   55 % slower, and folding each 8-column group of P V into O as soon as
+//   it is summed (4 registers instead of 64) ran no faster.
 //
 // What bounds it on an H100 SXM (NVIDIA's published peaks, at the full
 // 700 W power limit). At SmolLM-135M's prefill, (B, T, H, KH, hd) =
@@ -81,7 +90,9 @@
 // 2 * 2 * hd * B*H*T(T+1)/2 = 1.874e10 FLOP. Float32-accurate work on this
 // design is 3 TF32 passes: 3 * 1.874e10 / 495e12 = 0.114 ms, the floor;
 // one TF32 pass would be 0.038 ms, float32 outside the tensor cores
-// 0.280 ms, and the bytes q + k + v + out (49.5 MB) 0.015 ms.
+// 0.280 ms, and the bytes q + k + v + out (49.5 MB) 0.015 ms. At
+// Phi-4-mini's, (4, 2016, 24, 8, 128), the band is 9.99e10 FLOP: three
+// TF32 passes 0.606 ms, one pass 0.202 ms.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -95,8 +106,6 @@ namespace {
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int ROWS = 16 * WARPS;  // (position, group member) rows per block
-constexpr int KT = 64;            // keys per shared-memory tile
-constexpr int NT = KT / 8;        // 8-key groups per tile
 constexpr int STAGES = 2;
 constexpr int MAX_GROUP = 128;    // the wrapper's MAX_GROUP
 constexpr float NEG = -1e30f;
@@ -104,9 +113,16 @@ constexpr float NEG = -1e30f;
 template <typename T>
 __host__ __device__ constexpr int pad() { return 16 / (int)sizeof(T); }  // 16 bytes of row padding
 
+// keys per shared-memory tile: 64, or 32 for float32 at hd = 128, where a
+// 64-key ring would leave room for one block an SM
+template <typename T, int HD>
+__host__ __device__ constexpr int key_tile() {
+  return std::is_same<T, float>::value && HD >= 128 ? 32 : 64;
+}
+
 template <typename T, int HD>
 __host__ __device__ constexpr int smem_bytes() {
-  return STAGES * 2 * KT * (HD + pad<T>()) * (int)sizeof(T) +
+  return STAGES * 2 * key_tile<T, HD>() * (HD + pad<T>()) * (int)sizeof(T) +
          (std::is_same<T, float>::value ? WARPS * (HD / 8) * 32 * 16 : 0);  // Q small
 }
 
@@ -188,6 +204,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int tq, int tk, int tkp, int h, int kh, float scale,
                        int causal, int has_window, int window) {
   constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int KT = key_tile<T, HD>();    // keys per shared-memory tile
+  constexpr int NT = KT / 8;                // 8-key groups per tile
   constexpr int LD = HD + pad<T>();        // shared row stride, elements
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte copy
   constexpr int CPR = HD / EPC;             // copies per key row
@@ -468,6 +486,7 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out,
     case 16: return launch_hd<T, 16>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
     case 32: return launch_hd<T, 32>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
     case 64: return launch_hd<T, 64>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
+    case 128: return launch_hd<T, 128>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }

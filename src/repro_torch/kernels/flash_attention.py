@@ -49,7 +49,7 @@ from ._build import build_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NEG = -1e30
-HEAD_DIMS = (8, 16, 32, 64)  # head widths the kernel is instantiated for
+HEAD_DIMS = (8, 16, 32, 64, 128)  # head widths the kernel is instantiated for
 MAX_GROUP = 128  # the kernel's block holds 128 query rows of one KV head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

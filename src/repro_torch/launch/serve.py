@@ -11,8 +11,12 @@ decodes greedily. Weights are random, drawn from ``seed``.
     PYTHONPATH=src python -m repro_torch.launch.serve --full --batches 8
 
 runs SmolLM-135M at full width and depth on the card (``--device cpu`` runs
-on the host). On the card TF32 is switched off: the projections are
-float32 matmuls, and TF32 would break parity with the reference.
+on the host); ``--arch`` serves any architecture the registry builds
+(``phi4-mini-3.8b``, ``gemma3-27b``, ...). Qwen2-VL fails in its first
+prefill, as in the reference: its M-RoPE needs (3, B, S) positions, which
+serving with text prompts does not make. On the card TF32 is switched off:
+the projections are float32 matmuls, and TF32 would break parity with the
+reference.
 """
 from __future__ import annotations
 

@@ -3,7 +3,9 @@
 The port of ``repro/launch/steps.py``: ``OPT_LEVELS``, ``build_model``,
 ``TrainState``, ``make_train_step`` and ``abstract_train_state``. There is
 no mesh on one card: the MoE expert island and the ``pin`` knob (GSPMD
-batch-sharding constraints) have nothing to act on, so ``pin`` is dropped;
+batch-sharding constraints) have nothing to act on, so ``pin`` is dropped
+and MoE configs build the local path (``ep=None``; the reference's
+single-device mesh gives an ep axis of size 1, which drops nothing either);
 ``remat`` and ``vocab_chunk`` act on the train step. The train step is
 eager: one ``torch.autograd.grad`` over the parameter leaves, then
 ``AdamW.update``. The sharded half (``train_state_shardings``,

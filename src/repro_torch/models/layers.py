@@ -1,13 +1,13 @@
-"""Core layer primitives: norms, RoPE, GQA attention with its KV cache, and
-the dense MLP.
+"""Core layer primitives: norms, RoPE and M-RoPE, GQA attention (with
+per-head q/k norms) and its KV cache, and the dense MLP.
 
 The port of ``repro/models/layers.py`` for the attention layer kinds. Layers
 are plain functions over parameter trees (nested dicts of tensors); the
 parameters carry the dtype and the device, activations follow. The
 reference's ``pin_batch`` is a GSPMD sharding constraint and has no
-counterpart on one card, so it is dropped. Cross-attention, q/k norms,
-the ``stub`` probe, MLA and M-RoPE wait for ROADMAP A20 (``Model`` refuses
-configurations that need them).
+counterpart on one card, so it is dropped. Cross-attention, the ``stub``
+probe and MLA wait for ROADMAP A20 (``Model`` refuses configurations that
+need them).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ class Ctx(NamedTuple):
     """Per-call context threaded through the stack."""
 
     mode: str  # "train" | "prefill" | "decode"
-    positions: Tensor | None = None  # (B,S)
+    positions: Tensor | None = None  # (B,S) or (3,B,S) for M-RoPE
     decode_pos: Tensor | None = None  # (B,) current write index for decode
     cache_len: int = 0  # static cache capacity S for decode
     attn_impl: str = "naive"  # "naive" | "chunked" (kernel B4)
@@ -77,13 +77,22 @@ def rmsnorm(p: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
 def rope_angles(
     positions: Tensor, rot_dim: int, theta: float, sections=None
 ) -> tuple[Tensor, Tensor]:
-    """positions (B,S) -> cos/sin (B,S,rot_dim/2)."""
-    if sections is not None:
-        raise NotImplementedError("M-RoPE sections are not ported yet (ROADMAP A20)")
+    """positions (B,S) -> cos/sin (B,S,rot_dim/2). M-RoPE: positions (3,B,S)
+    with ``sections`` (t,h,w) splitting the rot_dim/2 frequencies."""
     half = rot_dim // 2
     exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
     freqs = 1.0 / (theta ** exponent)
-    ang = positions.float()[..., None] * freqs  # (B,S,half)
+    if sections is None:
+        if positions.dim() == 3:  # M-RoPE positions given but plain rope asked
+            positions = positions[0]
+        ang = positions.float()[..., None] * freqs  # (B,S,half)
+    else:
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE needs (3,B,S) positions, got {tuple(positions.shape)}")
+        bounds = torch.cumsum(torch.tensor(sections, device=positions.device), 0)
+        idx = torch.searchsorted(bounds, torch.arange(half, device=positions.device),
+                                 right=True)  # 0/1/2: the t, h or w stream
+        ang = positions.movedim(0, -1).float()[..., idx] * freqs
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -100,12 +109,16 @@ def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
 # ----------------------------------------------------------------- attention
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    return {
+    p = {
         "wq": _init(gen, (d, h * hd), d, dtype, device),
         "wk": _init(gen, (d, kh * hd), d, dtype, device),
         "wv": _init(gen, (d, kh * hd), d, dtype, device),
         "wo": _init(gen, (h * hd, d), h * hd, dtype, device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype, device)
+        p["k_norm"] = rmsnorm_init(hd, dtype, device)
+    return p
 
 
 def _write_kv(cache: Tensor, new: Tensor, pos: Tensor, mode: str) -> Tensor:
@@ -154,11 +167,16 @@ def attn_apply(
     q = (x @ p["wq"]).reshape(b, t, h, hd)
     k = (x @ p["wk"]).reshape(b, t, kh, hd)
     v = (x @ p["wv"]).reshape(b, t, kh, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
 
     rot_dim = int(cfg.rotary_pct * hd) // 2 * 2
     if rot_dim > 0:
         if ctx.mode == "decode":
             pos_q = ctx.decode_pos[:, None]  # (B,1)
+            if cfg.mrope_sections is not None:  # text stream: t=h=w position
+                pos_q = pos_q[None].expand((3,) + tuple(pos_q.shape))
         elif ctx.positions is not None:
             pos_q = ctx.positions
         else:

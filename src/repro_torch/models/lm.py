@@ -1,16 +1,20 @@
 """Top-level language model: embeddings, stack, head, loss and the serve steps.
 
 The port of ``repro/models/lm.py`` for decoder-only models of the attention
-kinds. Batch dict keys, as in the reference:
+and MoE kinds, q/k norms and M-RoPE included. Batch dict keys, as in the
+reference:
 
-  train / forward / prefill: tokens (B,S) int [, labels, positions]
+  train / forward / prefill: tokens (B,S) int [, labels, positions,
+                             patch_embeds]
   decode:                    token (B,) int, pos (B,) int
 
-``loss`` is the reference's, dense (float32 logsumexp) or chunked over the
-vocabulary (``vocab_chunk``), with ``remat`` on the stack's period layers.
-The MoE aux loss it adds is 0 for the attention kinds. Encoder-decoder
-models, the VLM's ``patch_embeds`` and M-RoPE, and MoE (with its aux loss)
-wait for the rest of ROADMAP A20.
+A VLM (Qwen2-VL) takes ``patch_embeds`` (B, P, d) from a stub vision
+frontend, added into the first P token slots, and M-RoPE ``positions``
+(3, B, S); without them M-RoPE fails, as in the reference. ``loss`` is the
+reference's, dense (float32 logsumexp) or chunked over the vocabulary
+(``vocab_chunk``), with ``remat`` on the stack's period layers, plus the
+MoE layers' aux loss (0 without MoE layers). Encoder-decoder models wait
+for the rest of ROADMAP A20.
 """
 from __future__ import annotations
 
@@ -45,8 +49,7 @@ class Model:
         for kind in cfg.layer_kinds:
             _check_kind(kind)
         unported = [name for name, on in (
-            ("encoder-decoder", cfg.encoder_layers), ("q/k norm", cfg.qk_norm),
-            ("M-RoPE", cfg.mrope_sections is not None),
+            ("encoder-decoder", cfg.encoder_layers),
             (f"attn_impl {self.attn_impl!r}", self.attn_impl not in ("naive", "chunked")),
         ) if on]
         if unported:
@@ -73,7 +76,11 @@ class Model:
 
     # ------------------------------------------------------------ helpers
     def _embed(self, params: Params, batch: dict) -> Tensor:
-        return params["embed"][batch["tokens"]]  # (B,S,d)
+        x = params["embed"][batch["tokens"]]  # (B,S,d)
+        pe = batch.get("patch_embeds")
+        if pe is not None:  # the stub vision frontend's patches, first P slots
+            x = torch.cat([x[:, :pe.shape[1]] + pe.to(x.dtype), x[:, pe.shape[1]:]], dim=1)
+        return x
 
     def _head(self, params: Params, h: Tensor) -> Tensor:
         h = rmsnorm(params["ln_f"], h, self.cfg.norm_eps)
@@ -93,39 +100,41 @@ class Model:
         )
 
     # -------------------------------------------------------------- train
-    def _hidden(self, params: Params, batch: dict) -> Tensor:
-        """The stack's output (B,S,d) in train mode, before the final norm."""
+    def _hidden(self, params: Params, batch: dict) -> tuple[Tensor, Tensor]:
+        """The stack's output (B,S,d) in train mode, before the final norm,
+        and the MoE layers' aux loss."""
         x = self._embed(params, batch)
-        h, _ = stack_apply(params["stack"], x, self._ctx(batch, "train"), self.cfg,
-                           remat=self.remat)
-        return h
+        h, _, aux = stack_apply(params["stack"], x, self._ctx(batch, "train"), self.cfg,
+                                remat=self.remat)
+        return h, aux
 
     def forward_logits(self, params: Params, batch: dict) -> Tensor:
         """Full-sequence logits (B,S,V). The reference also returns the MoE
-        aux loss, which is 0 for the attention kinds and is dropped here."""
-        return self._head(params, self._hidden(params, batch))
+        aux loss; here it goes into ``loss`` only (``_hidden`` gives it)."""
+        return self._head(params, self._hidden(params, batch)[0])
 
     def loss(self, params: Params, batch: dict) -> Tensor:
-        """Mean next-token cross entropy over all but the last position.
+        """Mean next-token cross entropy over all but the last position,
+        plus the MoE layers' aux loss.
 
-        ``labels`` default to the tokens shifted left, padded with 0. The
-        reference adds the MoE aux loss, 0 for the attention kinds."""
+        ``labels`` default to the tokens shifted left, padded with 0."""
         labels = batch.get("labels")
         if labels is None:
             labels = torch.nn.functional.pad(batch["tokens"][:, 1:], (0, 1), value=0)
         labels = labels.long()
+        h, aux = self._hidden(params, batch)
         if self.vocab_chunk is not None:
             # never materialize (B,S,V) float32 logits
-            h = rmsnorm(params["ln_f"], self._hidden(params, batch), self.cfg.norm_eps)
+            h = rmsnorm(params["ln_f"], h, self.cfg.norm_eps)
             w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
             ce_tok = chunked_softmax_xent(h, w, labels, chunk=self.vocab_chunk)
         else:
-            logits = self.forward_logits(params, batch).float()
+            logits = self._head(params, h).float()
             gold = torch.gather(logits, -1, labels[..., None])[..., 0]
             ce_tok = torch.logsumexp(logits, dim=-1) - gold
         mask = torch.ones_like(ce_tok)
         mask[:, -1] = 0.0  # last position has no target
-        return torch.sum(ce_tok * mask) / torch.sum(mask)
+        return torch.sum(ce_tok * mask) / torch.sum(mask) + aux
 
     # -------------------------------------------------------------- serve
     @torch.no_grad()
@@ -136,7 +145,7 @@ class Model:
         reserves decode capacity beyond the prompt length."""
         x = self._embed(params, batch)
         ctx = self._ctx(batch, "prefill", cache_len or batch["tokens"].shape[1])
-        h, caches = stack_apply(params["stack"], x, ctx, self.cfg)
+        h, caches, _ = stack_apply(params["stack"], x, ctx, self.cfg)
         logits = self._head(params, h[:, -1:, :])[:, 0]
         return logits, caches
 
@@ -146,7 +155,7 @@ class Model:
     ) -> tuple[Tensor, Params]:
         """One token: batch = {token (B,), pos (B,)}. Returns (logits, caches)."""
         x = params["embed"][batch["token"]][:, None, :]  # (B,1,d)
-        h, new_caches = stack_apply(
+        h, new_caches, _ = stack_apply(
             params["stack"], x, self._ctx(batch, "decode"), self.cfg, caches
         )
         return self._head(params, h)[:, 0], new_caches

@@ -1,7 +1,8 @@
 """Layer-stack machinery: blocks and the prefix / period / suffix stack.
 
 The port of ``repro/models/stack.py`` for the attention kinds (``attn``,
-``dense``, ``local``). The parameter tree is the reference's: ``prefix``
+``dense``, ``local``) and ``moe`` (attention + the MoE MLP on its local
+path). The parameter tree is the reference's: ``prefix``
 and ``suffix`` are lists of blocks, and ``period`` is a list with one entry
 per position of the repeating pattern, each stacked on a leading
 ``n_periods`` axis, so weights carry across one for one. Where the
@@ -12,7 +13,9 @@ acts on its scan body: ``"full"`` recomputes the layer in the backward
 (``torch.utils.checkpoint``, non-reentrant) and ``"dots"`` keeps only the
 outputs of its plain matrix products (``aten.mm`` / ``addmm``, the dots
 with no batch dimensions that ``checkpoint_dots_with_no_batch_dims`` keeps)
-and recomputes the rest. Other kinds (MoE, MLA, RG-LRU, RWKV6, encoder and
+and recomputes the rest. The MoE layers' aux losses are summed over
+prefix, period and suffix and returned beside the output, as the
+reference's third value. Other kinds (MLA, RG-LRU, RWKV6, encoder and
 cross-attention blocks) raise ``NotImplementedError`` until ROADMAP A20
 ports them.
 """
@@ -40,9 +43,10 @@ from .layers import (
     rmsnorm,
     rmsnorm_init,
 )
+from .moe import moe_apply, moe_init
 
 Params = dict[str, Any]
-PORTED_KINDS = ("attn", "dense", "local")
+PORTED_KINDS = ("attn", "dense", "local", "moe")
 REMAT = ("none", "full", "dots")
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -62,12 +66,16 @@ def _check_kind(kind: str) -> None:
 def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype, device) -> Params:
     _check_kind(kind)
     d = cfg.d_model
-    return {
+    p = {
         "ln1": rmsnorm_init(d, dtype, device),
         "ln2": rmsnorm_init(d, dtype, device),
         "attn": attn_init(gen, cfg, dtype, device),
-        "mlp": mlp_init(gen, d, cfg.d_ff, dtype, device),
     }
+    if kind == "moe":
+        p["moe"] = moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype, device)
+    return p
 
 
 def block_apply(
@@ -77,8 +85,9 @@ def block_apply(
     ctx: Ctx,
     cfg: ModelConfig,
     cache: Params | None,
-) -> tuple[Tensor, Params | None]:
-    """Pre-norm residual attention + dense MLP block. Returns (x, new_cache)."""
+) -> tuple[Tensor, Params | None, Tensor]:
+    """Pre-norm residual attention + dense or MoE MLP block. Returns (x,
+    new_cache, aux loss), the aux a float 0.0 for a dense MLP."""
     _check_kind(kind)
     window = cfg.window if kind == "local" else None
     self_cache = cache.get("self") if cache else None
@@ -87,7 +96,11 @@ def block_apply(
     x = x + y
     new_cache = {"self": new_self} if new_self is not None else None
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h), new_cache
+    if kind == "moe":
+        y, aux = moe_apply(p["moe"], h, cfg)
+    else:
+        y, aux = mlp_apply(p["mlp"], h), 0.0  # no launch for a zero
+    return x + y, new_cache, aux
 
 
 def _stack_trees(trees: list):
@@ -129,20 +142,28 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
 
 
 def _period_layer(p_rows: list, x: Tensor, ctx: Ctx, cfg: ModelConfig, c_rows) -> tuple:
-    """One layer of the period: each position's block in turn."""
+    """One layer of the period: each position's block in turn. Returns (x,
+    the positions' caches, the layer's aux loss)."""
     ncs = []
+    aux = 0.0
     for pos, kind in enumerate(cfg.period):
-        x, nc = block_apply(p_rows[pos], kind, x, ctx, cfg, c_rows[pos] if c_rows else None)
+        x, nc, a = block_apply(p_rows[pos], kind, x, ctx, cfg, c_rows[pos] if c_rows else None)
+        aux = aux + a
         ncs.append(nc)
-    return x, ncs
+    return x, ncs, aux
 
 
-def _remat_layer(p_rows: list, x: Tensor, ctx: Ctx, cfg: ModelConfig, remat: str) -> Tensor:
-    """A training period layer under ``remat`` "full" or "dots"."""
+def _remat_layer(p_rows: list, x: Tensor, ctx: Ctx, cfg: ModelConfig,
+                 remat: str) -> tuple[Tensor, Tensor]:
+    """A training period layer under ``remat`` "full" or "dots": (x, aux)."""
     context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
                   if remat == "dots" else noop_context_fn)
-    return checkpoint(lambda x, p: _period_layer(p, x, ctx, cfg, None)[0], x, p_rows,
-                      use_reentrant=False, context_fn=context_fn)
+
+    def layer(x, p):
+        x, _, aux = _period_layer(p, x, ctx, cfg, None)
+        return x, aux
+
+    return checkpoint(layer, x, p_rows, use_reentrant=False, context_fn=context_fn)
 
 
 def stack_apply(
@@ -152,16 +173,18 @@ def stack_apply(
     cfg: ModelConfig,
     caches: Params | None = None,
     remat: str = "none",
-) -> tuple[Tensor, Params | None]:
-    """Run the full stack. Returns (x, new_caches); caches only in prefill
-    and decode, in the reference's layout. ``remat`` (one of ``REMAT``)
-    acts in train mode only."""
+) -> tuple[Tensor, Params | None, Tensor]:
+    """Run the full stack. Returns (x, new_caches, aux loss sum); caches
+    only in prefill and decode, in the reference's layout. ``remat`` (one
+    of ``REMAT``) acts in train mode only."""
     want_cache = ctx.mode in ("prefill", "decode")
     new_caches: Params = {"prefix": [], "period": None, "suffix": []}
+    aux = 0.0  # a tensor once an MoE layer adds to it
 
     for i, kind in enumerate(cfg.prefix):
         c = caches["prefix"][i] if caches else None
-        x, nc = block_apply(params["prefix"][i], kind, x, ctx, cfg, c)
+        x, nc, a = block_apply(params["prefix"][i], kind, x, ctx, cfg, c)
+        aux = aux + a
         new_caches["prefix"].append(nc)
 
     if cfg.n_periods > 0:
@@ -171,10 +194,12 @@ def stack_apply(
         for layer in range(cfg.n_periods):
             p_rows = [p[layer] for p in p_layers]
             if remat != "none" and ctx.mode == "train":
-                x = _remat_layer(p_rows, x, ctx, cfg, remat)
+                x, a = _remat_layer(p_rows, x, ctx, cfg, remat)
+                aux = aux + a
                 continue
             c_rows = [c[layer] for c in c_layers] if c_layers else None
-            x, ncs = _period_layer(p_rows, x, ctx, cfg, c_rows)
+            x, ncs, a = _period_layer(p_rows, x, ctx, cfg, c_rows)
+            aux = aux + a
             for pos, nc in enumerate(ncs):
                 rows[pos].append(nc)
         if want_cache:
@@ -182,7 +207,10 @@ def stack_apply(
 
     for i, kind in enumerate(cfg.suffix):
         c = caches["suffix"][i] if caches else None
-        x, nc = block_apply(params["suffix"][i], kind, x, ctx, cfg, c)
+        x, nc, a = block_apply(params["suffix"][i], kind, x, ctx, cfg, c)
+        aux = aux + a
         new_caches["suffix"].append(nc)
 
-    return x, (new_caches if want_cache else None)
+    if not torch.is_tensor(aux):
+        aux = x.new_zeros((), dtype=torch.float32)
+    return x, (new_caches if want_cache else None), aux

@@ -85,6 +85,27 @@ def test_bf16_matches_pallas():
 
 
 @pytest.mark.parametrize(
+    "t,h,kh,window,dtype",
+    [(32, 4, 2, None, "float32"), (32, 6, 2, 8, "float32"), (37, 12, 2, None, "float32"),
+     (32, 16, 2, 12, "float32"), (30, 24, 2, None, "float32"), (32, 24, 8, 16, "bfloat16")],
+)
+def test_head_width_128_matches_pallas(t, h, kh, window, dtype):
+    """hd = 128, the width of the five GQA models, at their groups G = H / KH
+    (2, 3, 6, 8, 12), causal and windowed, a ragged T, and bfloat16."""
+    q, k, v = _qkv(t * h, 1, t, h, kh, 128)
+    kw = dict(scale=128**-0.5, causal=True, window=window, q_blk=16, k_blk=16)
+    if dtype == "float32":
+        got, want = _both(q, k, v, **kw)
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+        return
+    (qj, qt), (kj, kt), (vj, vt) = ((jnp.asarray(x).astype(jnp.bfloat16),
+                                     torch.from_numpy(x).to(torch.bfloat16)) for x in (q, k, v))
+    want = flash_attention_pallas(qj, kj, vj, interpret=True, **kw)
+    got = flash_attention(qt, kt, vt, **kw)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=3e-2)
+
+
+@pytest.mark.parametrize(
     "tq,tk,window",
     [(24, 40, None), (40, 24, None), (40, 24, 8), (36, 36, 4)],
 )

@@ -32,16 +32,21 @@ def _close(port, ref, atol):
     np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref), atol=atol, rtol=0)
 
 
-def test_configs_and_opt_levels_equal_the_reference():
+PORTED = ("smollm-135m", "starcoder2-15b", "phi4-mini-3.8b", "gemma3-27b",
+          "qwen3-moe-30b-a3b", "qwen2-vl-2b")
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_configs_and_opt_levels_equal_the_reference(arch):
     from repro.configs.registry import get_config as ref_get_config
 
     asdict = dataclasses.asdict
-    assert asdict(get_config("smollm-135m")) == asdict(ref_get_config("smollm-135m"))
-    assert asdict(get_smoke_config("smollm-135m")) == asdict(ref_smoke_config("smollm-135m"))
+    assert asdict(get_config(arch)) == asdict(ref_get_config(arch))
+    assert asdict(get_smoke_config(arch)) == asdict(ref_smoke_config(arch))
     assert OPT_LEVELS == REF_OPT_LEVELS
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a != "smollm-135m"])
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in PORTED])
 def test_unported_archs_raise_naming_a20(arch):
     with pytest.raises(KeyError, match="A20"):
         get_config(arch)
@@ -66,11 +71,6 @@ def test_rope_and_rmsnorm_match():
     scale = rng.standard_normal(16).astype(np.float32)
     got = layers.rmsnorm({"scale": torch.from_numpy(scale)}, torch.from_numpy(x), 1e-6)
     _close(got, ref_layers.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x), 1e-6), 1e-6)
-
-
-def test_mrope_sections_raise():
-    with pytest.raises(NotImplementedError, match="A20"):
-        layers.rope_angles(torch.zeros(3, 1, 4), 16, 1e4, sections=(2, 3, 3))
 
 
 @pytest.mark.parametrize("mode", ["onehot", "dus"])
@@ -191,8 +191,8 @@ def test_init_draws_the_reference_distributions():
 
 @pytest.mark.parametrize(
     "change",
-    [dict(period=(kind,)) for kind in ("moe", "mla", "rglru", "rwkv", "xattn", "enc")]
-    + [dict(qk_norm=True), dict(mrope_sections=(2, 3, 3)), dict(encoder_layers=2)],
+    [dict(period=(kind,)) for kind in ("mla", "rglru", "rwkv", "xattn", "enc")]
+    + [dict(encoder_layers=2)],
 )
 def test_unported_layer_kinds_and_options_raise(change):
     cfg = dataclasses.replace(SMOKE, **change)
