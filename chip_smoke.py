@@ -47,10 +47,12 @@ Phases, each raising on failure:
    the kernel is built for (8, 32, 64), unequal and ragged lengths, a
    non-causal case, SmolLM-135M's prefill shape (4, 2016, 9, 3, 64), head
    width 128 in float32 and bfloat16 at the GQA models' groups G = 2, 3,
-   6, 8 and 12, causal and windowed, at ragged lengths, and Phi-4-mini's
-   prefill shape (4, 2016, 24, 8, 128), with the two prefill shapes'
-   3xTF32 bounds; non-causal attention that needs key padding must raise
-   ``ValueError``.
+   6, 8 and 12, causal and windowed, at ragged lengths, Phi-4-mini's
+   prefill shape (4, 2016, 24, 8, 128), and head width 64 at G = 1 (plain
+   MHA) in float32 and bfloat16: SeamlessM4T-medium's decoder prefill
+   (2, 2016, 16, 16, 64) and a ragged T = 1001 with a window of 300; with
+   the three float32 prefill shapes' 3xTF32 bounds; non-causal attention
+   that needs key padding must raise ``ValueError``.
 3. Quickstart twin: three files (k = 6, 7, 4) solved at theta = 0.5 and
    200, then simulated with 20000 requests; the simulated mean must stay
    within the bound x 1.05, the claim ``examples/quickstart.py`` asserts.
@@ -282,6 +284,31 @@ Phases, each raising on failure:
        layer timed at 2 x 2016 tokens and at a decode step, with its host
        syncs (one a layer call: the group sizes). Each model's forward,
        prefill and decode ms/token; the phase's wall.
+14. The two layer kinds that need no new kernel, at full width and depth
+   (their registered configs), float32, random weights from a seed, O3:
+   14a. SeamlessM4T-medium (12 encoder + 12 decoder layers, d 1024, 16
+       heads of 64, vocab 256 206 tied; 7.15e8 parameters) on the stub
+       frontend's ``enc_embeds`` (2, 512, 1024) x 0.1: the encoder alone
+       (its bidirectional attention and the decoder's cross-attention are
+       the naive path, as in the reference), ``forward_logits`` of 2 x 2048
+       tokens, a prefill of the first 2016 and 32 decode steps fed the
+       sequence's next tokens, held to the forward at rtol 2e-2 / atol
+       2e-3; B4 launches once a decoder layer in the forward and in the
+       prefill, and each of the 24 calls is held to the plain twin; the
+       cross caches after the 32 steps must equal the prefill's bitwise
+       (decode never recomputes them); B4 timed on the path's
+       (2, 2016, 16, 16, 64) beside its bound (0.101 ms) and
+       ``scaled_dot_product_attention``.
+   14b. ``serve("rwkv6-1.6b", smoke=False)`` (24 layers, d 2048, head size
+       64, d_ff 7168, vocab 65 536 untied; 1.58e9 parameters) with phase
+       6's load; the path has no kernel of B1-B4 (its WKV recurrence is a
+       loop over tokens, as the reference's ``lax.scan`` has no Pallas
+       kernel), so no prefill may launch one; routes inside pi's support.
+       Then 14a's teacher forcing on 2 x 2048 tokens, the WKV loop's share
+       of the prefill's wall (a host timer around each layer's scan), and
+       the kernels a prefill and a decode step launch (``torch.profiler``
+       over prefills of 16 and 32 tokens: the difference is the loop's, a
+       token).
 
 The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
 the card could take for the work: each input read once and each output
@@ -298,7 +325,7 @@ The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 13 (4b included) every launch count is set to 0 just before
+In phases 3 to 14 (4b included) every launch count is set to 0 just before
 each main-path call (simulator, encode, decode, prefill, serving simulation,
 replan, scenario run, checkpoint save and restore, training run, loss and
 gradients, forward) and read just after;
@@ -333,6 +360,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -387,7 +415,7 @@ from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import build_model, loss_and_grads  # noqa: E402
-from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models import lm, moe, rwkv6  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AdaptiveReplanner,
@@ -574,6 +602,18 @@ GQA_RTOL, GQA_ATOL = 2e-2, 2e-3
 # 2c's hd = 128 cases (T, H, KH, window): G = 2, 3, 6, 8, 12 and ragged T
 GQA_FLASH_CASES = [(96, 4, 2, None), (130, 6, 2, 40), (77, 24, 4, None), (200, 16, 2, 64),
                    (301, 48, 4, None), (160, 24, 8, 100), (257, 12, 1, 31)]
+# phase 14: the encoder-decoder and RWKV6 at full width and depth (their
+# registered configs), float32, random weights from a seed, O3. 14a runs
+# SeamlessM4T-medium on 2 x 2048 tokens with the stub frontend's enc_embeds
+# (2, 512, 1024) x 0.1, as tests/test_models.py:26-29 builds them: a forward,
+# a prefill of 2016 tokens and 32 decode steps fed the sequence's own next
+# tokens, each step held to the forward at GQA_RTOL / GQA_ATOL. 14b serves
+# RWKV6-1.6B through serve() with phase 6's load, then runs 14a's teacher
+# forcing on 2 x 2048 tokens; its launches are counted on two short prefills
+# (RWKV_PROFILE_LENS tokens) with torch.profiler.
+ENCDEC_FLASH_SHAPE = (2, 2016, 16, 16, 64)  # SeamlessM4T's decoder prefill: (B, T, H, KH, hd)
+ENCDEC_ENC_SCALE = 0.1
+RWKV_PROFILE_LENS = (16, 32)
 PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
@@ -744,14 +784,15 @@ def recorded(module, name: str):
         setattr(module, name, fn)
 
 
-def counted(label: str, fn, kernel: str = "fcfs_scan"):
+def counted(label: str, fn, kernel: str = "fcfs_scan", least: int = 1):
     """Run one main-path call with every launch count set to 0 just before
-    it; return its result and ``kernel``'s count read just after."""
+    it; return its result and ``kernel``'s count read just after, which
+    must be at least ``least``."""
     for counter in COUNTERS.values():
         counter.launches = 0
     out = fn()
     launches = COUNTERS[kernel].launches
-    if launches < 1:
+    if launches < least:
         raise AssertionError(f"{label} did not go through the {kernel} kernel")
     return out, launches
 
@@ -1159,6 +1200,17 @@ def phase_flash_vs_plain(dev) -> float:
     b, t, h, kh, hd = PHI4_FLASH_SHAPE
     cases.append((f"Phi-4-mini prefill {PHI4_FLASH_SHAPE}", qkv_on(gen, dev, b, t, h, kh, hd),
                   dict(scale=hd**-0.5, q_blk=1024, k_blk=2048), 2e-5))
+    # hd = 64 at G = 1 (plain MHA): SeamlessM4T's decoder prefill, and a ragged
+    # T with a window, in float32 and bfloat16
+    b, t, h, kh, hd = ENCDEC_FLASH_SHAPE
+    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        cases += [
+            (f"SeamlessM4T prefill {ENCDEC_FLASH_SHAPE} {str(dtype)[6:]}",
+             qkv_on(gen, dev, b, t, h, kh, hd, dtype=dtype),
+             dict(scale=hd**-0.5, q_blk=1024, k_blk=2048), atol),
+            (f"hd=64 G=1 {str(dtype)[6:]} T=1001 window 300",
+             qkv_on(gen, dev, 2, 1001, h, kh, hd, dtype=dtype),
+             dict(scale=hd**-0.5, window=300, q_blk=1024, k_blk=2048), atol)]
     worst = 0.0
     for label, (q, k, v), kw, atol in cases:
         before = fa.flash_attention_cuda.launches
@@ -1174,7 +1226,7 @@ def phase_flash_vs_plain(dev) -> float:
         if q.dtype == torch.float32:
             worst = max(worst, err)
         print(f"[2c] B4 {label}: kernel == plain twin, max_abs_err {err:.3g} (atol {atol})")
-        if label.startswith(("SmolLM", "Phi-4")):
+        if label.startswith(("SmolLM", "Phi-4", "SeamlessM4T")) and q.dtype == torch.float32:
             fb = flash_bound(q, k)
             print(f"[2c] B4 {tuple(q.shape)} x {tuple(k.shape)} bound {fb['bound_ms']:.4f} ms "
                   f"(3xTF32, "
@@ -1653,15 +1705,8 @@ def phase_serve(dev, limits: dict) -> tuple[int, dict]:
         raise AssertionError(f"B4 launches per prefill {prefill_launches}, "
                              f"expected {cfg.n_layers} for each")
     # (b) every B4 call of the path against the plain twin on its inputs
-    worst = 0.0
-    for args, kwargs, got in calls:
-        plain_ms, want = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs), reps=1)
-        err = float((got - want).abs().max())
-        if not err <= 2e-5:
-            raise AssertionError(f"serve prefill: B4 differs from plain twin by {err}")
-        worst = max(worst, err)
+    worst, plain_ms = hold_flash_calls("serve prefill", calls)
     print(f"[6] {len(calls)} B4 calls of the serve path == plain twin, max_abs_err {worst:.3g}")
-    del want
     # (c) the naive-attention prefill on the same weights and tokens
     cache_len = SERVE["prompt_len"] + SERVE["gen_len"]
     batch = {"tokens": run.prompts[0]}
@@ -3559,6 +3604,50 @@ def phase_phi4_serve(dev, limits: dict) -> tuple[int, dict]:
     return sum(prefill_launches), record
 
 
+def hold_to_forward(tag: str, name: str, outs: list, full, differ=frozenset()) -> float:
+    """The prefill's last-position logits and each decode step's (``outs``,
+    in order from position ``GQA_PREFILL - 1``) against the forward's logits
+    at the same position, within ``tests/test_models.py``'s rtol / atol;
+    the (row, position) pairs in ``differ`` are left out. Returns the
+    largest |difference|."""
+    worst, worst_excess = 0.0, 0.0
+    for j, out in enumerate(outs):
+        position = GQA_PREFILL - 1 + j
+        rows = [r for r in range(out.shape[0]) if (r, position) not in differ]
+        got, want = out[rows], full[rows, position]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{tag} {name}: non-finite logits at position {position}")
+        if not bool(torch.isfinite(want).all()):
+            raise AssertionError(f"{tag} {name}: non-finite forward logits at position {position}")
+        err = (got - want).abs()
+        excess = float((err / (GQA_ATOL + GQA_RTOL * want.abs())).max())
+        if not excess <= 1.0:
+            raise AssertionError(f"{tag} {name}: decode differs from teacher forcing at "
+                                 f"position {position} ({excess:.3g} of the tolerance)")
+        worst = max(worst, float(err.max()))
+        worst_excess = max(worst_excess, excess)
+    print(f"[{tag}] {name}: prefill + {len(outs) - 1} decode steps vs forward_logits of the "
+          f"whole sequence: max |diff| {worst:.3g}, at most {worst_excess:.3g} of rtol "
+          f"{GQA_RTOL} / atol {GQA_ATOL}")
+    return worst
+
+
+def hold_flash_calls(label: str, calls) -> tuple[float, float]:
+    """Every recorded B4 call against the plain twin on its inputs, each
+    within atol 2e-5 (a NaN fails). Returns the largest |difference| and
+    the twin's ms on the last call."""
+    flash_err, plain_ms = 0.0, 0.0
+    for i, (args, kwargs, got) in enumerate(calls):
+        plain_ms, want = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs), reps=1)
+        err = float((got - want).abs().max())
+        del want
+        if not err <= 2e-5:
+            raise AssertionError(f"{label}: B4 call {i} {tuple(args[0].shape)} differs from "
+                                 f"plain twin by {err}")
+        flash_err = max(flash_err, err)
+    return flash_err, plain_ms
+
+
 @contextlib.contextmanager
 def recorded_routes():
     """Record every MoE routing call: its tokens' top-k experts and its aux
@@ -3592,45 +3681,28 @@ def compare_routes(n_layers: int, fwd, pre, dec) -> set:
     return differ
 
 
-def gqa_model_run(arch: str, dev) -> dict:
-    """13b for one model: forward of 2 x 2048 tokens at O3, prefill of the
-    first 2016 and 32 decode steps fed the sequence's next tokens; the
-    prefill's and each step's logits held to the forward's."""
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    full_cfg = get_config(arch)
-    cfg = dataclasses.replace(full_cfg, n_layers=GQA_DEPTH[arch])  # cut in depth only
-    model = build_model(cfg, dtype=torch.float32, remat="none", opt="O3", device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(GQA_SEED))
-    n_params = sum(x.numel() for x in tree_leaves(params))
-    gen = torch.Generator(device=dev).manual_seed(GQA_SEED + 1)
-    s = GQA_PREFILL + GQA_DECODE
-    tokens = torch.randint(0, cfg.vocab, (GQA_BATCH, s), generator=gen, device=dev)
-    batch = {"tokens": tokens}
-    if cfg.mrope_sections is not None:
-        batch["patch_embeds"] = torch.randn((GQA_BATCH, GQA_PATCHES, cfg.d_model),
-                                            generator=gen, device=dev) * 0.1
-        batch["positions"] = torch.arange(s, device=dev)[None, None].expand(3, GQA_BATCH, s)
-    pre = {k: (v[..., :GQA_PREFILL] if k in ("tokens", "positions") else v)
-           for k, v in batch.items()}
-    cut = f"{cfg.n_layers} of {full_cfg.n_layers} layers" + (
-        "" if cfg.n_layers < full_cfg.n_layers else " (full depth)")
-    print(f"[13b] {arch}: {cut}, {cfg.layer_kinds.count('local')} local, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim_}, vocab "
-          f"{cfg.vocab}, {n_params:.4g} parameters ({4 * n_params / 1e9:.2f} GB float32)")
-    attn_layers = cfg.n_layers
-    syncs0 = moe._expert_compute.host_syncs
-    with torch.no_grad(), recorded(fa, "flash_attention") as calls, \
-            recorded_routes() as routes:
+def teacher_forced(tag: str, model, params, batch: dict, pre: dict, dev, stage=None) -> dict:
+    """Under ``no_grad``, every B4 call recorded: the forward of ``batch``'s
+    whole sequence, a prefill of ``pre`` (its first GQA_PREFILL tokens)
+    with room for the whole sequence, and GQA_DECODE decode steps fed the
+    sequence's next tokens. ``stage(name, caches)`` runs before "forward",
+    "prefill" and "decode" (``caches`` the prefill's there, else None).
+    Returns the walls, B4's launches in the forward and in the prefill, the
+    forward's logits (``full``), the prefill's last-position logits and
+    each step's (``outs``), the caches after decode and the B4 calls."""
+    stage = stage or (lambda name, caches: None)
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    with torch.no_grad(), recorded(fa, "flash_attention") as calls:
+        stage("forward", None)
         fwd_s, (full, fwd_launches) = best_wall(lambda: counted(
-            f"13b {arch} forward", lambda: model.forward_logits(params, batch),
-            "flash_attention"), reps=1)
-        fwd_routes = routes[:]
+            f"{tag} forward", lambda: model.forward_logits(params, batch), "flash_attention",
+            least=0), reps=1)
+        stage("prefill", None)
         prefill_s, ((logits, caches), pre_launches) = best_wall(lambda: counted(
-            f"13b {arch} prefill", lambda: model.prefill(params, pre, cache_len=s),
-            "flash_attention"), reps=1)
-        pre_routes = routes[len(fwd_routes):]
+            f"{tag} prefill", lambda: model.prefill(params, pre, cache_len=s), "flash_attention",
+            least=0), reps=1)
+        stage("decode", caches)
         outs = [logits]
 
         def decode():
@@ -3642,68 +3714,124 @@ def gqa_model_run(arch: str, dev) -> dict:
                 outs.append(out)
 
         decode_s, _ = best_wall(decode, reps=1)
-        dec_routes = routes[len(fwd_routes) + len(pre_routes):]
+    return dict(fwd_s=fwd_s, prefill_s=prefill_s, decode_s=decode_s, fwd_launches=fwd_launches,
+                pre_launches=pre_launches, full=full, outs=outs, caches=caches, calls=calls)
+
+
+def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) -> dict:
+    """13b for one model, cut in depth to ``GQA_DEPTH`` (14a: SeamlessM4T
+    at full depth, its encoder timed alone and fed ``enc_embeds``):
+    ``teacher_forced`` on 2 x 2048 tokens at O3, the prefill's and each
+    step's logits held to the forward's, every B4 call to its plain twin,
+    an encoder-decoder's cross caches after decode bitwise the prefill's;
+    with ``limits``, B4 also timed on the path's last call (``record``)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full_cfg = get_config(arch)
+    cfg = dataclasses.replace(full_cfg, n_layers=GQA_DEPTH.get(arch, full_cfg.n_layers))
+    model = build_model(cfg, dtype=torch.float32, remat="none", opt="O3", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(GQA_SEED))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(GQA_SEED + 1)
+    s = GQA_PREFILL + GQA_DECODE
+    tokens = torch.randint(0, cfg.vocab, (GQA_BATCH, s), generator=gen, device=dev)
+    batch = {"tokens": tokens}
+    if cfg.mrope_sections is not None:
+        batch["patch_embeds"] = torch.randn((GQA_BATCH, GQA_PATCHES, cfg.d_model),
+                                            generator=gen, device=dev) * 0.1
+        batch["positions"] = torch.arange(s, device=dev)[None, None].expand(3, GQA_BATCH, s)
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = torch.randn((GQA_BATCH, cfg.encoder_seq, cfg.d_model),
+                                          generator=gen, device=dev) * ENCDEC_ENC_SCALE
+    pre = {k: (v[..., :GQA_PREFILL] if k in ("tokens", "positions") else v)
+           for k, v in batch.items()}
+    cut = f"{cfg.n_layers} of {full_cfg.n_layers} layers" + (
+        "" if cfg.n_layers < full_cfg.n_layers else " (full depth)")
+    encoder = (f", {cfg.encoder_layers} encoder layers fed enc_embeds "
+               f"{tuple(batch['enc_embeds'].shape)}" if cfg.encoder_layers else "")
+    print(f"[{tag}] {arch}: {cut}{encoder}, {cfg.layer_kinds.count('local')} local, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim_}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params:.4g} parameters "
+          f"({4 * n_params / 1e9:.2f} GB float32)")
+    result = dict(params=n_params)
+    if cfg.encoder_layers:
+        with torch.no_grad():
+            model._run_encoder(params, batch["enc_embeds"])  # warm
+            encoder_s, _ = best_wall(lambda: model._run_encoder(params, batch["enc_embeds"]),
+                                     reps=2)
+        result.update(encoder_ms=encoder_s * 1e3)
+    marks, cross = {}, {}
+
+    def stage(name, caches):
+        marks[name] = len(routes)
+        if name == "decode" and cfg.encoder_layers:
+            cross.update(caches["period"][0]["cross"])
+
+    syncs0 = moe._expert_compute.host_syncs
+    with recorded_routes() as routes:
+        run = teacher_forced(tag, model, params, batch, pre, dev, stage)
     syncs = moe._expert_compute.host_syncs - syncs0
-    del caches
-    if fwd_launches != attn_layers or pre_launches != attn_layers:
-        raise AssertionError(f"13b {arch}: B4 launches forward {fwd_launches}, prefill "
-                             f"{pre_launches}, expected {attn_layers}")
-    result = dict(launches=fwd_launches + pre_launches, params=n_params,
+    attn_layers = cfg.n_layers
+    if run["fwd_launches"] != attn_layers or run["pre_launches"] != attn_layers:
+        raise AssertionError(f"{tag} {arch}: B4 launches forward {run['fwd_launches']}, prefill "
+                             f"{run['pre_launches']}, expected {attn_layers}")
+    fwd_s, prefill_s, decode_s = run["fwd_s"], run["prefill_s"], run["decode_s"]
+    result.update(launches=run["fwd_launches"] + run["pre_launches"],
                   prefill_ms=prefill_s * 1e3, forward_ms=fwd_s * 1e3,
                   decode_ms_per_token=decode_s / GQA_DECODE * 1e3, host_syncs=syncs)
+    if cfg.encoder_layers:  # decode reads the prefill's cross K/V and never recomputes them
+        kv = (cfg.n_layers, GQA_BATCH, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim_)
+        after = run["caches"]["period"][0]["cross"]
+        if tuple(cross["k"].shape) != kv or not all(
+                torch.equal(after[key], cross[key]) for key in ("k", "v")):
+            raise AssertionError(f"{tag} {arch}: the cross caches after decode are not the "
+                                 f"prefill's")
+        print(f"[{tag}] cross caches {kv} after {GQA_DECODE} decode steps == the prefill's, "
+              f"bitwise")
+        del after, cross
+    del run["caches"]
 
     # the expert sets of the forward against the prefill's and the steps'
     differ = set()
     if cfg.moe is not None:
         n_moe = cfg.layer_kinds.count("moe")
+        fwd_routes = routes[:marks["prefill"]]
+        pre_routes = routes[marks["prefill"]:marks["decode"]]
+        dec_routes = routes[marks["decode"]:]
         dec_steps = [dec_routes[i * n_moe:(i + 1) * n_moe] for i in range(GQA_DECODE)]
         differ = compare_routes(n_moe, fwd_routes, pre_routes, dec_steps)
         load = torch.stack([torch.bincount(e.reshape(-1), minlength=cfg.moe.n_experts)
                             for e, _ in pre_routes])
         aux = [float(a) for _, a in pre_routes]
-        print(f"[13b] {arch} prefill routing ({GQA_BATCH} x {GQA_PREFILL} tokens, top "
+        print(f"[{tag}] {arch} prefill routing ({GQA_BATCH} x {GQA_PREFILL} tokens, top "
               f"{cfg.moe.top_k} of {cfg.moe.n_experts}): aux loss by layer "
               f"{[round(a, 7) for a in aux]} (sum {sum(aux):.7f}); per-expert load by layer, "
               f"min / median / max: {[(int(r.min()), int(r.median()), int(r.max())) for r in load]}; "
               f"layer 0's load {load[0].tolist()}")
-        print(f"[13b] {arch}: {len(differ)} (row, position) pairs whose top-{cfg.moe.top_k} "
+        print(f"[{tag}] {arch}: {len(differ)} (row, position) pairs whose top-{cfg.moe.top_k} "
               f"set differs between the forward and the prefill or decode path"
               + (f": {sorted(differ)}" if differ else ""))
         result.update(aux=sum(aux), routes_differ=len(differ))
+    del routes
 
     # the prefill's logits (position 2015) and each step's against the forward
-    worst, worst_excess = 0.0, 0.0
-    for j, out in enumerate(outs):
-        position = GQA_PREFILL - 1 + j
-        rows = [r for r in range(GQA_BATCH) if (r, position) not in differ]
-        got, want = out[rows], full[rows, position]
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"13b {arch}: non-finite logits at position {position}")
-        err = (got - want).abs()
-        worst = max(worst, float(err.max()))
-        worst_excess = max(worst_excess, float((err / (GQA_ATOL + GQA_RTOL * want.abs())).max()))
-    result.update(max_abs_err_logits=worst)
-    print(f"[13b] {arch}: prefill + {GQA_DECODE} decode steps vs forward_logits of the whole "
-          f"sequence: max |diff| {worst:.3g}, at most {worst_excess:.3g} of rtol {GQA_RTOL} / "
-          f"atol {GQA_ATOL}")
-    if not worst_excess <= 1.0:
-        raise AssertionError(f"13b {arch}: decode differs from teacher forcing "
-                             f"({worst_excess:.3g} of the tolerance)")
-    del full, outs
+    result.update(max_abs_err_logits=hold_to_forward(tag, arch, run.pop("outs"),
+                                                     run.pop("full"), differ))
 
     # every B4 call of the path against the plain twin on its inputs
-    flash_err = 0.0
-    for args, kwargs, got in calls:
-        plain_ms, want = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs), reps=1)
-        flash_err = max(flash_err, float((got - want).abs().max()))
-    del want
-    if not flash_err <= 2e-5:
-        raise AssertionError(f"13b {arch}: B4 differs from plain twin by {flash_err}")
+    calls = run.pop("calls")
+    flash_err, plain_ms = hold_flash_calls(f"{tag} {arch}", calls)
     result.update(max_abs_err=flash_err)
-    q, k = calls[-1][0][:2]
-    print(f"[13b] {arch}: {len(calls)} B4 calls (forward and prefill, {tuple(q.shape)} x "
-          f"{tuple(k.shape)} the last) == plain twin, max_abs_err {flash_err:.3g}")
+    args, kwargs, got = calls[-1]
+    print(f"[{tag}] {arch}: {len(calls)} B4 calls (forward and prefill, "
+          f"{tuple(args[0].shape)} x {tuple(args[1].shape)} the last) == plain twin, "
+          f"max_abs_err {flash_err:.3g}")
     del calls
+    if limits is not None:
+        result.update(record=time_flash(tag, args, kwargs, got,
+                                        dict(max_abs_err=flash_err, plain_ms=plain_ms), limits))
+    del args, kwargs, got
 
     if cfg.moe is not None:  # one MoE layer alone, at the prefill's and a step's tokens
         p = params["stack"]["period"][0]["moe"]
@@ -3715,12 +3843,16 @@ def gqa_model_run(arch: str, dev) -> dict:
             result["moe_prefill_ms"], _ = cuda_ms(lambda: moe.moe_apply(p, h, cfg), reps=3)
             result["moe_decode_ms"], _ = cuda_ms(lambda: moe.moe_apply(p, h[:, :1], cfg), reps=5)
             per_call = (moe._expert_compute.host_syncs - n0) / 8
-        print(f"[13b] {arch}: one MoE layer at {GQA_BATCH} x {GQA_PREFILL} tokens "
+        print(f"[{tag}] {arch}: one MoE layer at {GQA_BATCH} x {GQA_PREFILL} tokens "
               f"{result['moe_prefill_ms']:.3f} ms, at {GQA_BATCH} x 1 (a decode step) "
               f"{result['moe_decode_ms']:.3f} ms; {per_call:g} host sync a layer call, "
               f"{syncs} in this model's forward, prefill and {GQA_DECODE} steps")
-    print(f"[13b] {arch}: forward {fwd_s * 1e3:.3f} ms ({GQA_BATCH} x {s} tokens), prefill "
-          f"{prefill_s * 1e3:.3f} ms ({GQA_BATCH} x {GQA_PREFILL}), decode "
+    included = " (encoder included)" if cfg.encoder_layers else ""
+    print(f"[{tag}] {arch}: "
+          + (f"encoder {encoder_s * 1e3:.3f} ms ({GQA_BATCH} x {cfg.encoder_seq} frames), "
+             if cfg.encoder_layers else "")
+          + f"forward {fwd_s * 1e3:.3f} ms ({GQA_BATCH} x {s} tokens){included}, prefill "
+          f"{prefill_s * 1e3:.3f} ms ({GQA_BATCH} x {GQA_PREFILL}){included}, decode "
           f"{decode_s / GQA_DECODE * 1e3:.3f} ms/token at batch {GQA_BATCH}; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall "
           f"{time.perf_counter() - t0:.3f} s")
@@ -3738,6 +3870,158 @@ def phase_gqa(dev, limits: dict) -> dict:
     models = {arch: gqa_model_run(arch, dev) for arch in GQA_DEPTH}
     print(f"[13] phase 13 wall {time.perf_counter() - t0:.3f} s")
     return dict(launches=launches, record=record, models=models)
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the encoder-decoder and RWKV6 at full width and depth.
+# ---------------------------------------------------------------------------
+
+
+def kernels_in(fn) -> int:
+    """The CUDA kernels ``torch.profiler`` records while ``fn`` runs; fails
+    if the trace holds none."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sum(1 for event in prof.events()
+                  if event.device_type == torch.autograd.DeviceType.CUDA)
+    if kernels == 0:
+        raise RuntimeError("the profiler's trace recorded no device events")
+    return kernels
+
+
+def phase_rwkv(dev) -> dict:
+    """14b: ``serve("rwkv6-1.6b", smoke=False)`` with phase 6's load (no
+    prefill may launch a kernel of B1-B4: the path has none), then a
+    forward of 2 x 2048 tokens, a prefill of the first 2016 with the WKV
+    loop timed, and 32 decode steps held to the forward; the kernels a
+    prefill and a decode step launch, counted by the profiler."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_launches = []
+    prefill = lm.Model.prefill
+
+    def counted_prefill(self, *args, **kwargs):
+        for counter in COUNTERS.values():
+            counter.launches = 0
+        out = prefill(self, *args, **kwargs)
+        prefill_launches.append(sum(counter.launches for counter in COUNTERS.values()))
+        return out
+
+    lm.Model.prefill = counted_prefill
+    try:
+        run = serve("rwkv6-1.6b", smoke=False, device=dev, **SERVE)
+    finally:
+        lm.Model.prefill = prefill
+    serve_s = time.perf_counter() - t0
+    model, params, cfg = run.model, run.params, run.model.cfg
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"[14b] serve('rwkv6-1.6b', smoke=False): {cfg.n_layers} layers (full depth), d_model "
+          f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_size} heads of {cfg.rwkv_head_size}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (untied), {n_params:.4g} parameters "
+          f"({4 * n_params / 1e9:.2f} GB float32); serve wall {serve_s:.3f} s")
+    if len(prefill_launches) != SERVE["n_batches"] + 1 or any(prefill_launches):
+        raise AssertionError(f"14b kernel launches per prefill {prefill_launches}: the path has "
+                             f"no kernel of B1-B4")
+    pi = run.router.pi[0]
+    if not np.isfinite(run.router.latency_bound):
+        raise AssertionError(f"14b plan latency bound {run.router.latency_bound}")
+    if any(pi[j] <= 0 for r in run.replicas for j in r):
+        raise AssertionError(f"14b routed outside pi's support: {run.replicas}, pi {pi}")
+    for toks in run.tokens:
+        if toks.shape != (SERVE["batch"], SERVE["gen_len"] + 1) or not (
+                (toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"14b generated tokens {tuple(toks.shape)} out of range")
+    tokens_served = SERVE["batch"] * SERVE["prompt_len"]
+    lat = np.asarray(run.latencies)
+    result = dict(params=n_params, serve_prefill_ms=np.mean(run.prefill_s) * 1e3,
+                  serve_decode_ms_per_token=np.mean(run.decode_s) / SERVE["gen_len"] * 1e3)
+    print(f"[14b] serve: {prefill_launches.count(0)} prefills with no kernel launch of B1-B4; "
+          f"routes {run.replicas} inside pi's support {np.round(pi, 3)}; prefill "
+          f"{result['serve_prefill_ms']:.3f} ms per {tokens_served}-token batch, decode "
+          f"{result['serve_decode_ms_per_token']:.3f} ms/token at batch {SERVE['batch']}; "
+          f"batch latency mean {lat.mean() * 1e3:.3f} ms, p95 "
+          f"{np.quantile(lat, 0.95) * 1e3:.3f} ms")
+    del run
+
+    # teacher forcing on 2 x 2048 tokens, the WKV loop's share of the prefill
+    gen = torch.Generator(device=dev).manual_seed(GQA_SEED + 1)
+    s = GQA_PREFILL + GQA_DECODE
+    tokens = torch.randint(0, cfg.vocab, (GQA_BATCH, s), generator=gen, device=dev)
+    scan, loop = rwkv6._wkv_scan, dict(s=0.0, calls=0)
+
+    def timed_scan(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = scan(*args)
+        torch.cuda.synchronize()
+        loop["s"] += time.perf_counter() - t
+        loop["calls"] += 1
+        return out
+
+    def stage(name, caches):  # the host timer wraps the prefill's scans only
+        rwkv6._wkv_scan = timed_scan if name == "prefill" else scan
+
+    try:
+        run = teacher_forced("14b", model, params, {"tokens": tokens},
+                             {"tokens": tokens[:, :GQA_PREFILL]}, dev, stage)
+    finally:
+        rwkv6._wkv_scan = scan
+    if run["fwd_launches"] or run["pre_launches"] or run["calls"]:
+        raise AssertionError(f"14b: B4 launched ({run['fwd_launches']} in the forward, "
+                             f"{run['pre_launches']} in the prefill): the path has no attention")
+    caches = run.pop("caches")
+    with torch.no_grad():
+        step = {"token": tokens[:, -1], "pos": torch.full((GQA_BATCH,), s - 1, device=dev)}
+        per_step = kernels_in(lambda: model.decode_step(params, caches, step))
+        short = [kernels_in(lambda: model.prefill(params, {"tokens": tokens[:, :n]}, cache_len=n))
+                 for n in RWKV_PROFILE_LENS]
+    del caches
+    if loop["calls"] != cfg.n_layers:
+        raise AssertionError(f"14b: {loop['calls']} WKV scans in a prefill of {cfg.n_layers} "
+                             f"layers")
+    fwd_s, prefill_s, decode_s = run["fwd_s"], run["prefill_s"], run["decode_s"]
+    result.update(max_abs_err_logits=hold_to_forward("14b", "rwkv6-1.6b", run.pop("outs"),
+                                                     run.pop("full")),
+                  forward_ms=fwd_s * 1e3, prefill_ms=prefill_s * 1e3,
+                  decode_ms_per_token=decode_s / GQA_DECODE * 1e3,
+                  wkv_loop_share=loop["s"] / prefill_s)
+    del run
+    print(f"[14b] forward {result['forward_ms']:.3f} ms ({GQA_BATCH} x {s} tokens), prefill "
+          f"{result['prefill_ms']:.3f} ms ({GQA_BATCH} x {GQA_PREFILL}), of which the WKV loop "
+          f"(a host timer around each layer's scan) {loop['s'] * 1e3:.3f} ms, "
+          f"{100 * result['wkv_loop_share']:.1f} %; decode {result['decode_ms_per_token']:.3f} "
+          f"ms/token at batch {GQA_BATCH}")
+    (n0, n1), (k0, k1) = RWKV_PROFILE_LENS, short
+    per_token = (k1 - k0) / (n1 - n0)
+    fixed = k0 - per_token * n0
+    result.update(launches_per_token_layer=per_token / cfg.n_layers,
+                  launches_per_prefill=fixed + per_token * GQA_PREFILL,
+                  launches_per_decode_step=per_step)
+    print(f"[14b] kernels (torch.profiler): prefills of {n0} and {n1} tokens {k0} and {k1}, "
+          f"so {per_token:g} a token ({result['launches_per_token_layer']:g} a token and "
+          f"layer, the WKV loop) and {fixed:g} besides: "
+          f"{result['launches_per_prefill']:.6g} for a prefill of {GQA_PREFILL} (extrapolated "
+          f"linearly from the two, not profiled); "
+          f"a decode step {per_step}")
+    print(f"[14b] peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall "
+          f"{time.perf_counter() - t0:.3f} s")
+    del params, model
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_encdec_rwkv(dev, limits: dict) -> dict:
+    """Phase 14: 14a SeamlessM4T-medium and 14b RWKV6-1.6B, both at full
+    width and depth."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    encdec = gqa_model_run("seamless-m4t-medium", dev, tag="14a", limits=limits)
+    rwkv = phase_rwkv(dev)
+    print(f"[14] phase 14 wall {time.perf_counter() - t0:.3f} s")
+    return dict(encdec=encdec, rwkv=rwkv)
 
 
 def main() -> int:
@@ -3778,6 +4062,7 @@ def main() -> int:
     grad = phase_grad(dev)
     print(f"[12] phase 12 wall {time.perf_counter() - t12:.3f} s")
     gqa = phase_gqa(dev, limits)
+    late = phase_encdec_rwkv(dev, limits)
     by_path = {"quickstart_simulate": quick_launches,
                "catalog_simulate_fleet": fleet_launches,
                "figures_simulate": figure_launches,
@@ -3844,8 +4129,9 @@ def main() -> int:
                    "train_grad_O3": grad["launches"]["O3"],
                    "phi4_serve_prefill": gqa["launches"],
                    **{f"{arch}_forward_prefill": run["launches"]
-                      for arch, run in gqa["models"].items()}}
-    phi4 = gqa["record"]
+                      for arch, run in gqa["models"].items()},
+                   "seamless-m4t-medium_forward_prefill": late["encdec"]["launches"]}
+    phi4, encdec = gqa["record"], late["encdec"]["record"]
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
@@ -3855,7 +4141,7 @@ def main() -> int:
         "launches": sum(flash_paths.values()),
         "launches_by_path": flash_paths,
         "max_abs_err": max(flash_err, flash["max_abs_err"], grad["record"]["max_abs_err"],
-                           phi4["max_abs_err"],
+                           phi4["max_abs_err"], encdec["max_abs_err"],
                            *(run["max_abs_err"] for run in gqa["models"].values())),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
@@ -3879,6 +4165,12 @@ def main() -> int:
         "bound_ms_hd128": phi4["bound_ms"],
         "bound_by_hd128": phi4["bound_by"],
         "library_ms_hd128": phi4["library_ms"],
+        # phase 14a's hd = 64 at G = 1, SeamlessM4T's decoder prefill (2, 2016, 16, 16, 64)
+        "ms_hd64_g1": encdec["ms"],
+        "plain_ms_hd64_g1": encdec["plain_ms"],
+        "bound_ms_hd64_g1": encdec["bound_ms"],
+        "bound_by_hd64_g1": encdec["bound_by"],
+        "library_ms_hd64_g1": encdec["library_ms"],
     })
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(card)  # again, so that the end of the output names the card

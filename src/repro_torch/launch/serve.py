@@ -12,9 +12,11 @@ decodes greedily. Weights are random, drawn from ``seed``.
 
 runs SmolLM-135M at full width and depth on the card (``--device cpu`` runs
 on the host); ``--arch`` serves any architecture the registry builds
-(``phi4-mini-3.8b``, ``gemma3-27b``, ...). Qwen2-VL fails in its first
-prefill, as in the reference: its M-RoPE needs (3, B, S) positions, which
-serving with text prompts does not make. On the card TF32 is switched off:
+(``phi4-mini-3.8b``, ``gemma3-27b``, ``rwkv6-1.6b``, ...). Two fail in
+their first prefill, as in the reference: Qwen2-VL, whose M-RoPE needs
+(3, B, S) positions, and SeamlessM4T-medium, whose encoder needs the stub
+frontend's ``enc_embeds``; serving with text prompts makes neither. On the
+card TF32 is switched off:
 the projections are float32 matmuls, and TF32 would break parity with the
 reference.
 """

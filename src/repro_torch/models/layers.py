@@ -1,13 +1,13 @@
-"""Core layer primitives: norms, RoPE and M-RoPE, GQA attention (with
-per-head q/k norms) and its KV cache, and the dense MLP.
+"""Core layer primitives: norms, RoPE and M-RoPE, GQA self- and
+cross-attention (with per-head q/k norms) and their KV caches, and the
+dense MLP.
 
 The port of ``repro/models/layers.py`` for the attention layer kinds. Layers
 are plain functions over parameter trees (nested dicts of tensors); the
 parameters carry the dtype and the device, activations follow. The
 reference's ``pin_batch`` is a GSPMD sharding constraint and has no
-counterpart on one card, so it is dropped. Cross-attention, the ``stub``
-probe and MLA wait for ROADMAP A20 (``Model`` refuses configurations that
-need them).
+counterpart on one card, so it is dropped. The ``stub`` probe and MLA wait
+for ROADMAP A20 (``Model`` refuses configurations that need them).
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ class Ctx(NamedTuple):
     mode: str  # "train" | "prefill" | "decode"
     positions: Tensor | None = None  # (B,S) or (3,B,S) for M-RoPE
     decode_pos: Tensor | None = None  # (B,) current write index for decode
+    enc_out: Tensor | None = None  # (B, S_enc, d) encoder memory (enc-dec)
     cache_len: int = 0  # static cache capacity S for decode
     attn_impl: str = "naive"  # "naive" | "chunked" (kernel B4)
     attn_q_blk: int = 1024
@@ -160,19 +161,29 @@ def attn_apply(
     *,
     window: int | None = None,
     cache: Params | None = None,
+    cross: bool = False,
 ) -> tuple[Tensor, Params | None]:
-    """Causal self-attention, optionally windowed. Returns (y, new_cache)."""
+    """Causal self-attention, optionally windowed, or with ``cross``
+    attention over the encoder memory ``ctx.enc_out``. Returns (y,
+    new_cache)."""
     b, t, d = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = (x @ p["wq"]).reshape(b, t, h, hd)
-    k = (x @ p["wk"]).reshape(b, t, kh, hd)
-    v = (x @ p["wv"]).reshape(b, t, kh, hd)
+    if cross and ctx.mode == "decode":
+        # encoder memory K/V live in the cross cache; never recomputed
+        assert cache is not None
+        k, v = cache["k"], cache["v"]
+    else:
+        kv_src = ctx.enc_out if cross else x
+        k = (kv_src @ p["wk"]).reshape(b, kv_src.shape[1], kh, hd)
+        v = (kv_src @ p["wv"]).reshape(b, kv_src.shape[1], kh, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+        if not (cross and ctx.mode == "decode"):
+            k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
 
     rot_dim = int(cfg.rotary_pct * hd) // 2 * 2
-    if rot_dim > 0:
+    if not cross and rot_dim > 0:
         if ctx.mode == "decode":
             pos_q = ctx.decode_pos[:, None]  # (B,1)
             if cfg.mrope_sections is not None:  # text stream: t=h=w position
@@ -188,7 +199,15 @@ def attn_apply(
     scale = 1.0 / math.sqrt(hd)
     new_cache = None
 
-    if ctx.mode == "decode":
+    if cross:
+        # full visibility of the encoder memory
+        if ctx.mode == "decode":
+            new_cache = cache
+        elif ctx.mode == "prefill":
+            new_cache = {"k": k, "v": v}
+        mask = torch.ones((b, t, k.shape[1]), dtype=torch.bool, device=x.device)
+        y = _sdpa(q, k, v, mask, scale)
+    elif ctx.mode == "decode":
         assert cache is not None
         s = cache["k"].shape[1]
         pos = ctx.decode_pos  # (B,)

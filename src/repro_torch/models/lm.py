@@ -1,20 +1,25 @@
-"""Top-level language model: embeddings, stack, head, loss and the serve steps.
+"""Top-level language model: embeddings, stack(s), head, loss and the serve
+steps.
 
-The port of ``repro/models/lm.py`` for decoder-only models of the attention
-and MoE kinds, q/k norms and M-RoPE included. Batch dict keys, as in the
-reference:
+The port of ``repro/models/lm.py`` for decoder-only models of the
+attention, MoE and RWKV6 kinds, q/k norms and M-RoPE included, and for
+the encoder-decoder. Batch dict keys, as in the reference:
 
   train / forward / prefill: tokens (B,S) int [, labels, positions,
-                             patch_embeds]
+                             enc_embeds, patch_embeds]
   decode:                    token (B,) int, pos (B,) int
 
-A VLM (Qwen2-VL) takes ``patch_embeds`` (B, P, d) from a stub vision
-frontend, added into the first P token slots, and M-RoPE ``positions``
-(3, B, S); without them M-RoPE fails, as in the reference. ``loss`` is the
-reference's, dense (float32 logsumexp) or chunked over the vocabulary
-(``vocab_chunk``), with ``remat`` on the stack's period layers, plus the
-MoE layers' aux loss (0 without MoE layers). Encoder-decoder models wait
-for the rest of ROADMAP A20.
+An encoder-decoder (SeamlessM4T) takes ``enc_embeds`` (B, S_enc, d) from a
+stub speech / text frontend: the encoder stack runs once a call (train,
+forward, prefill) and the decoder cross-attends to its output; prefill
+caches each layer's cross K/V, which decode reuses and never recomputes.
+Without ``enc_embeds`` it fails, as in the reference. A VLM (Qwen2-VL)
+takes ``patch_embeds`` (B, P, d) from a stub vision frontend, added into
+the first P token slots, and M-RoPE ``positions`` (3, B, S); without them
+M-RoPE fails, as in the reference. ``loss`` is the reference's, dense
+(float32 logsumexp) or chunked over the vocabulary (``vocab_chunk``), with
+``remat`` on the stacks' period layers, plus the MoE layers' aux loss (0
+without MoE layers).
 """
 from __future__ import annotations
 
@@ -48,12 +53,9 @@ class Model:
         cfg = self.cfg
         for kind in cfg.layer_kinds:
             _check_kind(kind)
-        unported = [name for name, on in (
-            ("encoder-decoder", cfg.encoder_layers),
-            (f"attn_impl {self.attn_impl!r}", self.attn_impl not in ("naive", "chunked")),
-        ) if on]
-        if unported:
-            raise NotImplementedError(f"{', '.join(unported)}: not ported yet (ROADMAP A20)")
+        if self.attn_impl not in ("naive", "chunked"):
+            raise NotImplementedError(
+                f"attn_impl {self.attn_impl!r}: not ported yet (ROADMAP A20)")
         if self.remat not in REMAT:
             raise ValueError(f"remat {self.remat!r} is not one of {REMAT}")
 
@@ -61,7 +63,8 @@ class Model:
     def init(self, gen: torch.Generator) -> Params:
         """Random parameters drawn from ``gen`` (on the model's device), with
         the reference's distributions: N(0, 1/fan_in) projections, N(0, 0.02²)
-        embeddings, unit norm scales."""
+        embeddings, unit norm scales (RWKV6 blocks: ``rwkv_init``'s); an
+        encoder-decoder's encoder stack and its final norm after the rest."""
         cfg, dev = self.cfg, self.device
         embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev) * 0.02
         params: Params = {
@@ -72,9 +75,32 @@ class Model:
         if not cfg.tie_embeddings:
             head = torch.randn((cfg.d_model, cfg.vocab), generator=gen, device=dev) * 0.02
             params["lm_head"] = head.to(self.dtype)
+        if cfg.encoder_layers:
+            params["encoder"] = {
+                "stack": stack_init(gen, self._encoder_cfg(), self.dtype, dev),
+                "ln_f": rmsnorm_init(cfg.d_model, self.dtype, dev),
+            }
         return params
 
     # ------------------------------------------------------------ helpers
+    def _encoder_cfg(self) -> ModelConfig:
+        return dataclasses.replace(
+            self.cfg, n_layers=self.cfg.encoder_layers, prefix=(), period=("enc",), suffix=())
+
+    def _run_encoder(self, params: Params, enc_embeds: Tensor) -> Tensor:
+        """The encoder stack over the frontend's embeddings, in train mode
+        (no cache) under the model's ``remat``, as in the reference."""
+        h, _, _ = stack_apply(params["encoder"]["stack"], enc_embeds.to(self.dtype),
+                              Ctx(mode="train"), self._encoder_cfg(), remat=self.remat)
+        return rmsnorm(params["encoder"]["ln_f"], h, self.cfg.norm_eps)
+
+    def _with_encoder(self, params: Params, batch: dict) -> dict:
+        """``batch`` with the encoder's output under ``_enc_out`` for an
+        encoder-decoder, else as it is."""
+        if not self.cfg.encoder_layers:
+            return batch
+        return dict(batch, _enc_out=self._run_encoder(params, batch["enc_embeds"]))
+
     def _embed(self, params: Params, batch: dict) -> Tensor:
         x = params["embed"][batch["tokens"]]  # (B,S,d)
         pe = batch.get("patch_embeds")
@@ -92,6 +118,7 @@ class Model:
             mode=mode,
             positions=batch.get("positions"),
             decode_pos=batch.get("pos"),
+            enc_out=batch.get("_enc_out"),
             cache_len=cache_len,
             attn_impl=self.attn_impl,
             attn_q_blk=self.attn_q_blk,
@@ -103,6 +130,7 @@ class Model:
     def _hidden(self, params: Params, batch: dict) -> tuple[Tensor, Tensor]:
         """The stack's output (B,S,d) in train mode, before the final norm,
         and the MoE layers' aux loss."""
+        batch = self._with_encoder(params, batch)
         x = self._embed(params, batch)
         h, _, aux = stack_apply(params["stack"], x, self._ctx(batch, "train"), self.cfg,
                                 remat=self.remat)
@@ -143,6 +171,7 @@ class Model:
     ) -> tuple[Tensor, Params]:
         """Returns (last-position logits (B,V), caches). ``cache_len``
         reserves decode capacity beyond the prompt length."""
+        batch = self._with_encoder(params, batch)
         x = self._embed(params, batch)
         ctx = self._ctx(batch, "prefill", cache_len or batch["tokens"].shape[1])
         h, caches, _ = stack_apply(params["stack"], x, ctx, self.cfg)
@@ -163,15 +192,25 @@ class Model:
     # ---------------------------------------------------- cache allocation
     def empty_caches(self, batch_size: int, cache_len: int) -> Params:
         """Zeroed decode caches in the layout ``prefill`` returns."""
-        cfg = self.cfg
+        cfg, dev = self.cfg, self.device
+
+        def zeros(shape, dtype=self.dtype) -> Tensor:
+            return torch.zeros(shape, dtype=dtype, device=dev)
 
         def one(kind: str, lead: tuple = ()) -> Params:
+            if kind == "rwkv":
+                n_h, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+                return {
+                    "state": zeros(lead + (batch_size, n_h, hs, hs), torch.float32),
+                    "shift_tm": zeros(lead + (batch_size, cfg.d_model)),
+                    "shift_cm": zeros(lead + (batch_size, cfg.d_model)),
+                }
             s = cache_len if kind != "local" else min(cache_len, cfg.window)
-            shape = lead + (batch_size, s, cfg.n_kv_heads, cfg.head_dim_)
-            return {"self": {
-                "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            }}
+            kv = lambda n: {"k": zeros(lead + (batch_size, n, cfg.n_kv_heads, cfg.head_dim_)),
+                            "v": zeros(lead + (batch_size, n, cfg.n_kv_heads, cfg.head_dim_))}
+            if kind == "xattn":
+                return {"self": kv(s), "cross": kv(cfg.encoder_seq)}
+            return {"self": kv(s)}
 
         caches: Params = {
             "prefix": [one(kind) for kind in cfg.prefix],

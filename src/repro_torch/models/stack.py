@@ -1,8 +1,11 @@
 """Layer-stack machinery: blocks and the prefix / period / suffix stack.
 
 The port of ``repro/models/stack.py`` for the attention kinds (``attn``,
-``dense``, ``local``) and ``moe`` (attention + the MoE MLP on its local
-path). The parameter tree is the reference's: ``prefix``
+``dense``, ``local``), ``moe`` (attention + the MoE MLP on its local
+path), the encoder-decoder's ``enc`` (bidirectional self-attention) and
+``xattn`` (causal self-attention, then cross-attention over the encoder
+memory) kinds, and ``rwkv`` (the RWKV6 block, which owns its residuals).
+The parameter tree is the reference's: ``prefix``
 and ``suffix`` are lists of blocks, and ``period`` is a list with one entry
 per position of the repeating pattern, each stacked on a leading
 ``n_periods`` axis, so weights carry across one for one. Where the
@@ -15,13 +18,13 @@ outputs of its plain matrix products (``aten.mm`` / ``addmm``, the dots
 with no batch dimensions that ``checkpoint_dots_with_no_batch_dims`` keeps)
 and recomputes the rest. The MoE layers' aux losses are summed over
 prefix, period and suffix and returned beside the output, as the
-reference's third value. Other kinds (MLA, RG-LRU, RWKV6, encoder and
-cross-attention blocks) raise ``NotImplementedError`` until ROADMAP A20
-ports them.
+reference's third value. The other kinds (MLA, RG-LRU) raise
+``NotImplementedError`` until ROADMAP A20 ports them.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any
 
 import torch
@@ -36,17 +39,21 @@ from torch.utils.checkpoint import (
 from .config import ModelConfig
 from .layers import (
     Ctx,
+    _sdpa,
+    apply_rope,
     attn_apply,
     attn_init,
     mlp_apply,
     mlp_init,
     rmsnorm,
     rmsnorm_init,
+    rope_angles,
 )
 from .moe import moe_apply, moe_init
+from .rwkv6 import rwkv_apply, rwkv_init
 
 Params = dict[str, Any]
-PORTED_KINDS = ("attn", "dense", "local", "moe")
+PORTED_KINDS = ("attn", "dense", "local", "moe", "enc", "xattn", "rwkv")
 REMAT = ("none", "full", "dots")
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -66,11 +73,16 @@ def _check_kind(kind: str) -> None:
 def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype, device) -> Params:
     _check_kind(kind)
     d = cfg.d_model
+    if kind == "rwkv":
+        return {"rwkv": rwkv_init(gen, cfg, dtype, device)}
     p = {
         "ln1": rmsnorm_init(d, dtype, device),
         "ln2": rmsnorm_init(d, dtype, device),
         "attn": attn_init(gen, cfg, dtype, device),
     }
+    if kind == "xattn":
+        p["ln_x"] = rmsnorm_init(d, dtype, device)
+        p["xattn"] = attn_init(gen, cfg, dtype, device)
     if kind == "moe":
         p["moe"] = moe_init(gen, cfg, dtype, device)
     else:
@@ -86,21 +98,56 @@ def block_apply(
     cfg: ModelConfig,
     cache: Params | None,
 ) -> tuple[Tensor, Params | None, Tensor]:
-    """Pre-norm residual attention + dense or MoE MLP block. Returns (x,
-    new_cache, aux loss), the aux a float 0.0 for a dense MLP."""
+    """Pre-norm residual attention + dense or MoE MLP block (``xattn``
+    adds pre-norm residual cross-attention between the two), or the RWKV6
+    block. Returns (x, new_cache, aux loss), the aux a float 0.0 for a
+    dense MLP."""
     _check_kind(kind)
-    window = cfg.window if kind == "local" else None
+    if kind == "rwkv":
+        x, new_cache = rwkv_apply(p["rwkv"], x, cfg, ctx.mode, cache)
+        return x, new_cache, 0.0
     self_cache = cache.get("self") if cache else None
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, new_self = attn_apply(p["attn"], h, ctx, cfg, window=window, cache=self_cache)
+    if kind == "enc":
+        # bidirectional; enc blocks only run in full-sequence mode, no cache
+        y, new_self = _bidirectional_attn(p["attn"], h, cfg), None
+    else:
+        window = cfg.window if kind == "local" else None
+        y, new_self = attn_apply(p["attn"], h, ctx, cfg, window=window, cache=self_cache)
     x = x + y
-    new_cache = {"self": new_self} if new_self is not None else None
+    new_cache = None
+    if kind == "xattn":
+        hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+        yx, new_cross = attn_apply(p["xattn"], hx, ctx, cfg,
+                                   cache=cache.get("cross") if cache else None, cross=True)
+        x = x + yx
+        if new_self is not None or new_cross is not None:
+            new_cache = {"self": new_self, "cross": new_cross}
+    elif new_self is not None:
+        new_cache = {"self": new_self}
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind == "moe":
         y, aux = moe_apply(p["moe"], h, cfg)
     else:
         y, aux = mlp_apply(p["mlp"], h), 0.0  # no launch for a zero
     return x + y, new_cache, aux
+
+
+def _bidirectional_attn(p: Params, h: Tensor, cfg: ModelConfig) -> Tensor:
+    """Full (non-causal) self-attention for encoder blocks: RoPE over the
+    whole head width (not ``rotary_pct``), the naive ``_sdpa`` with an
+    all-true mask, as in the reference."""
+    b, t, _ = h.shape
+    hh, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = (h @ p["wq"]).reshape(b, t, hh, hd)
+    k = (h @ p["wk"]).reshape(b, t, kh, hd)
+    v = (h @ p["wv"]).reshape(b, t, kh, hd)
+    pos = torch.arange(t, device=h.device)[None, :].expand(b, t)
+    cos, sin = rope_angles(pos, hd, cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    mask = torch.ones((b, t, t), dtype=torch.bool, device=h.device)
+    y = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
+    return y.reshape(b, t, hh * hd) @ p["wo"]
 
 
 def _stack_trees(trees: list):

@@ -110,21 +110,20 @@ def _torch(batch):
 # ------------------------------------------------------------ serve path
 
 
-@pytest.mark.parametrize("opt", ["O0", "O3"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_greedy_decode_and_forward_match(arch, opt):
-    """A 20-token prompt (past Gemma3's smoke window of 16, so its local
-    caches are rolling buffers) and 6 greedy steps."""
+def serve_path_matches(arch: str, opt: str, batch: dict, steps: int = 6) -> tuple:
+    """Prefill ``batch`` (its tokens the prompt), ``steps`` greedy decode
+    steps and ``forward_logits`` in both packages: equal tokens, and logits
+    and caches at ``ATOL``. Returns the port's caches after the prefill and
+    after the steps."""
     ref, port, ref_params, params = _pair(arch, opt)
-    cfg = port.cfg
-    prompt, steps = 20, 6
-    batch = _batch(cfg, prompt)
+    prompt = batch["tokens"].shape[1]
     ref_prefill = jax.jit(ref.prefill, static_argnames="cache_len")
     ref_decode = jax.jit(ref.decode_step)
     ref_logits, ref_caches = ref_prefill(ref_params, _jax(batch), cache_len=prompt + steps)
     logits, caches = port.prefill(params, _torch(batch), cache_len=prompt + steps)
     _close(logits, ref_logits)
     _tree_close(caches, ref_caches, ATOL)
+    prefill_caches = caches
 
     full = port.forward_logits(params, _torch(batch))
     ref_full, _ = jax.jit(ref.forward_logits)(ref_params, _jax(batch))
@@ -144,17 +143,18 @@ def test_prefill_greedy_decode_and_forward_match(arch, opt):
         tok = torch.argmax(logits, -1)
     np.testing.assert_array_equal(tok.numpy(), np.asarray(ref_tok))
     _tree_close(caches, ref_caches, ATOL)
+    return prefill_caches, caches
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_decode_matches_teacher_forcing(arch):
+def decode_tracks_teacher_forcing(arch: str, batch: dict, t0: int = 12) -> None:
     """``tests/test_models.py::test_decode_matches_teacher_forcing`` on the
-    port at O3: prefill 12 tokens, decode 12 more through the caches, each
-    step's logits against ``forward_logits`` of all 24."""
+    port at O3: prefill the first ``t0`` tokens of ``batch``, decode the
+    rest through the caches, each step's logits against ``forward_logits``
+    of the whole sequence at rtol 2e-2 / atol 2e-3."""
     _, port, _, params = _pair(arch, "O3")
-    cfg, s, t0 = port.cfg, 24, 12
-    batch = _torch(_batch(cfg, s, seed=7, grid=False))
-    full = port.forward_logits(params, batch)
+    batch = _torch(batch)
+    s = batch["tokens"].shape[1]
+    full = port.forward_logits(params, batch).detach()
     pre = {k: (v[..., :t0] if k in ("tokens", "positions") else v) for k, v in batch.items()}
     logits, caches = port.prefill(params, pre, cache_len=s)
     np.testing.assert_allclose(logits.numpy(), full[:, t0 - 1].numpy(), rtol=2e-2, atol=2e-3)
@@ -163,6 +163,20 @@ def test_decode_matches_teacher_forcing(arch):
         logits, caches = port.decode_step(params, caches, step)
         np.testing.assert_allclose(logits.numpy(), full[:, t].numpy(), rtol=2e-2, atol=2e-3,
                                    err_msg=f"{arch} decode step {t}")
+
+
+@pytest.mark.parametrize("opt", ["O0", "O3"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_greedy_decode_and_forward_match(arch, opt):
+    """A 20-token prompt (past Gemma3's smoke window of 16, so its local
+    caches are rolling buffers) and 6 greedy steps."""
+    serve_path_matches(arch, opt, _batch(ref_smoke_config(arch), 20))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_teacher_forcing(arch):
+    """Prefill 12 tokens, decode 12 more."""
+    decode_tracks_teacher_forcing(arch, _batch(ref_smoke_config(arch), 24, seed=7, grid=False))
 
 
 # ------------------------------------------------------------------ M-RoPE

@@ -156,6 +156,21 @@ def test_flash_bound_is_three_tf32_passes_at_smollm_prefill():
     assert got["bound_gb"] == pytest.approx(0.049545216)
 
 
+def test_flash_bound_at_seamless_decoder_prefill():
+    """hd = 64 at G = 1: SeamlessM4T-medium's decoder prefill in phase 14a."""
+    cs = _chip_smoke()
+    b, t, h, kh, hd = cs.ENCDEC_FLASH_SHAPE
+    assert kh == h
+    q = torch.empty((b, t, h, hd), device="meta")
+    k = torch.empty((b, t, kh, hd), device="meta")
+    got = cs.flash_bound(q, k)
+    assert got["bound_flop"] == 4 * hd * b * h * t * (t + 1) // 2 == 16_655_450_112
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(0.101, abs=5e-4)
+    assert got["bound_tf32_ms"] == pytest.approx(0.0336, abs=1e-4)
+    assert got["bound_bytes_ms"] == pytest.approx(0.01972, abs=1e-5)
+
+
 @pytest.mark.parametrize("shape", [(1, 6, 6, 349_525_500), (500, 6, 6, 699_051)])
 def test_gf_bound_at_the_codec_path_shapes(shape):
     """B2's (12, 6) encode and B3's (12, 6) decode move the same bytes:
