@@ -50,9 +50,12 @@ Phases, each raising on failure:
    6, 8 and 12, causal and windowed, at ragged lengths, Phi-4-mini's
    prefill shape (4, 2016, 24, 8, 128), and head width 64 at G = 1 (plain
    MHA) in float32 and bfloat16: SeamlessM4T-medium's decoder prefill
-   (2, 2016, 16, 16, 64) and a ragged T = 1001 with a window of 300; with
-   the three float32 prefill shapes' 3xTF32 bounds; non-causal attention
-   that needs key padding must raise ``ValueError``.
+   (2, 2016, 16, 16, 64) and a ragged T = 1001 with a window of 300; MLA's
+   widths, q/k 192 and v 128, in float32 and bfloat16: DeepSeek-V3's
+   prefill (2, 2016, 128, 128), a ragged T = 1001 with 4 heads, and G = 2
+   at T = 300 with a window of 100; with the four float32 prefill shapes'
+   3xTF32 bounds; non-causal attention that needs key padding must raise
+   ``ValueError``.
 3. Quickstart twin: three files (k = 6, 7, 4) solved at theta = 0.5 and
    200, then simulated with 20000 requests; the simulated mean must stay
    within the bound x 1.05, the claim ``examples/quickstart.py`` asserts.
@@ -300,8 +303,8 @@ Phases, each raising on failure:
        (2, 2016, 16, 16, 64) beside its bound (0.101 ms) and
        ``scaled_dot_product_attention``.
    14b. ``serve("rwkv6-1.6b", smoke=False)`` (24 layers, d 2048, head size
-       64, d_ff 7168, vocab 65 536 untied; 1.58e9 parameters) with phase
-       6's load; the path has no kernel of B1-B4 (its WKV recurrence is a
+       64, d_ff 7168, vocab 65 536 untied; 1.58e9 parameters) with 2 of
+       phase 6's 8 batches; the path has no kernel of B1-B4 (its WKV recurrence is a
        loop over tokens, as the reference's ``lax.scan`` has no Pallas
        kernel), so no prefill may launch one; routes inside pi's support.
        Then 14a's teacher forcing on 2 x 2048 tokens, the WKV loop's share
@@ -309,6 +312,24 @@ Phases, each raising on failure:
        the kernels a prefill and a decode step launch (``torch.profiler``
        over prefills of 16 and 32 tokens: the difference is the loop's, a
        token).
+15. DeepSeek-V3 (MLA) at full width (its registered config: d 7168, 128
+   heads of q/k 192 (nope 128 + rope 64) and v 128 over a 512 + 64 latent
+   cache, 256 routed experts top 8 and a shared one, vocab 129 280 untied),
+   cut in depth to 4 of 61 layers: the three ``mla_dense`` layers (d_ff
+   18 432) and one ``mla`` MoE layer; 1.51e10 parameters (60.4 GB),
+   float32, random weights from a seed, O3. 13b's teacher forcing: a
+   forward of 2 x 2048 tokens, a prefill of the first 2016 and 32 decode
+   steps in MLA's absorbed form over the compressed cache, fed the
+   sequence's next tokens, each step's logits held to the forward's
+   (expanded attention through B4) at rtol 2e-2 / atol 2e-3; the routes
+   compared as in 13b. B4 launches once a layer in the forward and in the
+   prefill; each of the 8 calls is held to the plain twin as it is made
+   (in 13b and 14a too: the twin over 8 slices of the heads, which fits
+   beside the parameters), and the forward and the prefill are timed again
+   without the holds. B4 timed on
+   the path's (2, 2016, 128, 128) x 192 / 128 beside its bound (2.019 ms),
+   the plain twin and ``scaled_dot_product_attention``; one MoE layer
+   timed alone; the peak memory and the host syncs.
 
 The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
 the card could take for the work: each input read once and each output
@@ -316,26 +337,27 @@ written once at 3.35 TB/s, or the operations at the peak rate of the type
 the design computes in. B1's bound is its bytes. B2 and B3's are theirs:
 their integer operations, counted from the design, sit under the bytes at
 the INT32 peak. B4 computes float32 attention as three TF32 tensor-core
-passes (3xTF32), so its bound is 3 x 2 x 2 x hd FLOP per visible (row,
-key) pair at 495 TFLOP/s; the one-pass TF32, float32-outside-the-tensor-
-cores and byte times stand beside it as fields. The backward of B4's
-Function (torch ops, no kernel) is bound by its float32 operations, 5 x 2 x
-hd per visible pair, at 67 TFLOP/s (TF32 is off).
+passes (3xTF32), so its bound is 3 x 2 x (hd + vd) FLOP per visible (row,
+key) pair at 495 TFLOP/s (vd, v's width, is hd but for MLA's 192 / 128);
+the one-pass TF32, float32-outside-the-tensor-cores and byte times stand
+beside it as fields. The backward of B4's Function (torch ops, no kernel)
+is bound by its float32 operations, 5 x 2 x hd per visible pair, at 67
+TFLOP/s (TF32 is off).
 The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 14 (4b included) every launch count is set to 0 just before
+In phases 3 to 15 (4b included) every launch count is set to 0 just before
 each main-path call (simulator, encode, decode, prefill, serving simulation,
 replan, scenario run, checkpoint save and restore, training run, loss and
-gradients, forward) and read just after;
-each call must have launched its kernel. Every kernel call those paths
-make is recorded, and its output is held against the plain twin on the
+gradients, forward) and read just after; each call must have launched its
+kernel. Every kernel call those paths make is recorded (or, in 13 to 15,
+held as it is made), and its output is held against the plain twin on the
 same inputs, B1's with the carried state the call passed: bitwise for B1
 to B3 (latency and dep; B1's busy within rtol 1e-6, as in phase 2), within
-atol 2e-5 for B4. Each kernel and its plain twin are
-timed with CUDA events on the main path's own inputs (B2 and B3's records
-on the largest codec group's).
+atol 2e-5 for B4. Each kernel and its plain twin are timed with CUDA events
+on the main path's own inputs (B2 and B3's records on the largest codec
+group's).
 
 It then prints the kernel records as one JSON line and, last, the device
 line. It needs a CUDA card, and fails without one.
@@ -416,6 +438,7 @@ from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import build_model, loss_and_grads  # noqa: E402
 from repro_torch.models import lm, moe, rwkv6  # noqa: E402
+from repro_torch.models.stack import _mlp_kind  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AdaptiveReplanner,
@@ -596,7 +619,8 @@ GRAD_BATCH, GRAD_SEQ, GRAD_SEED, GRAD_LOSS_RTOL, GRAD_REL_L2 = 2, 2048, 0, 2e-4,
 # tests/test_models.py's tolerance. Qwen2-VL's batch carries 4 patch
 # embeddings and (3, B, S) positions, as tests/test_models.py:31-35 builds them.
 PHI4_FLASH_SHAPE = (4, 2016, 24, 8, 128)  # Phi-4-mini's prefill in 13a: (B, T, H, KH, hd)
-GQA_DEPTH = {"gemma3-27b": 8, "qwen3-moe-30b-a3b": 4, "starcoder2-15b": 4, "qwen2-vl-2b": 28}
+GQA_DEPTH = {"gemma3-27b": 8, "qwen3-moe-30b-a3b": 4, "starcoder2-15b": 4, "qwen2-vl-2b": 28,
+             "deepseek-v3-671b": 4}
 GQA_BATCH, GQA_PREFILL, GQA_DECODE, GQA_PATCHES, GQA_SEED = 2, 2016, 32, 4, 0
 GQA_RTOL, GQA_ATOL = 2e-2, 2e-3
 # 2c's hd = 128 cases (T, H, KH, window): G = 2, 3, 6, 8, 12 and ragged T
@@ -608,12 +632,26 @@ GQA_FLASH_CASES = [(96, 4, 2, None), (130, 6, 2, 40), (77, 24, 4, None), (200, 1
 # (2, 512, 1024) x 0.1, as tests/test_models.py:26-29 builds them: a forward,
 # a prefill of 2016 tokens and 32 decode steps fed the sequence's own next
 # tokens, each step held to the forward at GQA_RTOL / GQA_ATOL. 14b serves
-# RWKV6-1.6B through serve() with phase 6's load, then runs 14a's teacher
+# RWKV6-1.6B through serve() with RWKV_SERVE's load, then runs 14a's teacher
 # forcing on 2 x 2048 tokens; its launches are counted on two short prefills
 # (RWKV_PROFILE_LENS tokens) with torch.profiler.
 ENCDEC_FLASH_SHAPE = (2, 2016, 16, 16, 64)  # SeamlessM4T's decoder prefill: (B, T, H, KH, hd)
 ENCDEC_ENC_SCALE = 0.1
 RWKV_PROFILE_LENS = (16, 32)
+# 14b serves 2 of phase 6's 8 batches: each RWKV6 prefill is its WKV loop,
+# ~5.5 s a 4 x 2016 batch, and 8 of them took 77 s of the script's limit
+RWKV_SERVE = dict(SERVE, n_batches=2)
+# phase 15: DeepSeek-V3 at full width (its registered config), cut in depth by
+# GQA_DEPTH to its three mla_dense layers and one mla (MoE) layer, float32, O3,
+# through 13b's teacher forcing. MLA's prefill and forward run B4 at q/k width
+# 192 (nope 128 + rope 64) and v width 128.
+MLA_ARCH = "deepseek-v3-671b"
+MLA_FLASH_SHAPE = (2, 2016, 128, 128, 192, 128)  # MLA's prefill: (B, T, H, KH, hd, vd)
+# 13b, 14a and 15 hold each B4 call to the plain twin as it is made, the twin
+# over up to HOLD_SLICES slices of the KV heads (a head's attention reads only
+# its own rows): beside DeepSeek-V3's 60.4 GB of parameters, its 8 calls kept
+# would take 10.7 GB and the whole twin's (T, T) scores 13 GB.
+HOLD_SLICES = 8
 PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
@@ -882,17 +920,19 @@ def gf_work_line(record: dict, limits: dict) -> str:
             f"the INT32 rate {int_ms:.4f} ms")
 
 
-def flash_bound(q, k) -> dict:
+def flash_bound(q, k, v=None) -> dict:
     """The least time for one causal float32 attention call on B4's design:
     q, k, v read once and the output written once, or its operations,
-    2 x 2 x hd per (query row, visible key) pair (the pairs counted from
-    the causal mask), done as TF32_PASSES tensor-core passes at the TF32
-    rate. Kept beside it: one TF32 pass, the same FLOP in float32 outside
-    the tensor cores, and the bytes."""
+    2 x (hd + vd) per (query row, visible key) pair (q . k and p v; the
+    pairs counted from the causal mask), done as TF32_PASSES tensor-core
+    passes at the TF32 rate. v defaults to k's shape. Kept beside it: one
+    TF32 pass, the same FLOP in float32 outside the tensor cores, and the
+    bytes."""
     b, tq, h, hd = q.shape
+    vd = k.shape[3] if v is None else v.shape[3]
     pairs = int(np.minimum(np.arange(1, tq + 1), k.shape[1]).sum())
-    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    n_ops = 4 * hd * pairs * b * h
+    n_bytes = (q.numel() + b * tq * h * vd + k.numel() + k.numel() // hd * vd) * q.element_size()
+    n_ops = 2 * (hd + vd) * pairs * b * h
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e3
     return dict(
@@ -1158,11 +1198,12 @@ def phase_gf256_vs_plain(dev, limits: dict) -> None:
     print(f"[2b] decode_batch of a view {tuple(chunks.shape)}: byte-exact through B3")
 
 
-def qkv_on(gen, dev, b, tq, h, kh, hd, tk=None, dtype=torch.float32):
-    """Random normal q (B,Tq,H,hd) and k, v (B,Tk,KH,hd) on the card."""
+def qkv_on(gen, dev, b, tq, h, kh, hd, tk=None, dtype=torch.float32, vd=None):
+    """Random normal q (B,Tq,H,hd), k (B,Tk,KH,hd) and v (B,Tk,KH,vd) on the
+    card (vd defaults to hd)."""
     tk = tq if tk is None else tk
     rand = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dtype)
-    return rand(b, tq, h, hd), rand(b, tk, kh, hd), rand(b, tk, kh, hd)
+    return rand(b, tq, h, hd), rand(b, tk, kh, hd), rand(b, tk, kh, hd if vd is None else vd)
 
 
 def phase_flash_vs_plain(dev) -> float:
@@ -1211,6 +1252,21 @@ def phase_flash_vs_plain(dev) -> float:
             (f"hd=64 G=1 {str(dtype)[6:]} T=1001 window 300",
              qkv_on(gen, dev, 2, 1001, h, kh, hd, dtype=dtype),
              dict(scale=hd**-0.5, window=300, q_blk=1024, k_blk=2048), atol)]
+    # MLA's widths, q/k 192 and v 128: DeepSeek-V3's prefill, a ragged T with
+    # a few heads, and G = 2 with a window (the template is GQA-general)
+    b, t, h, kh, hd, vd = MLA_FLASH_SHAPE
+    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        name = str(dtype)[6:]
+        cases += [
+            (f"DeepSeek-V3 prefill {MLA_FLASH_SHAPE} {name}",
+             qkv_on(gen, dev, b, t, h, kh, hd, dtype=dtype, vd=vd),
+             dict(scale=hd**-0.5, q_blk=1024, k_blk=2048), atol),
+            (f"qk192 v128 G=1 {name} T=1001",
+             qkv_on(gen, dev, 2, 1001, 4, 4, hd, dtype=dtype, vd=vd),
+             dict(scale=hd**-0.5, q_blk=1024, k_blk=2048), atol),
+            (f"qk192 v128 G=2 {name} T=300 window 100",
+             qkv_on(gen, dev, 2, 300, 8, 4, hd, dtype=dtype, vd=vd),
+             dict(scale=hd**-0.5, window=100, q_blk=1024, k_blk=2048), atol)]
     worst = 0.0
     for label, (q, k, v), kw, atol in cases:
         before = fa.flash_attention_cuda.launches
@@ -1218,7 +1274,7 @@ def phase_flash_vs_plain(dev) -> float:
         if fa.flash_attention_cuda.launches != before + 1:
             raise AssertionError(f"{label}: flash_attention did not launch B4")
         want = fa.flash_attention_plain(q, k, v, **kw)
-        if got.dtype != q.dtype or got.shape != q.shape:
+        if got.dtype != q.dtype or got.shape != q.shape[:3] + v.shape[3:]:
             raise AssertionError(f"{label}: output {got.dtype} {tuple(got.shape)}")
         err = float((got.float() - want.float()).abs().max())
         if not err <= atol:
@@ -1226,8 +1282,9 @@ def phase_flash_vs_plain(dev) -> float:
         if q.dtype == torch.float32:
             worst = max(worst, err)
         print(f"[2c] B4 {label}: kernel == plain twin, max_abs_err {err:.3g} (atol {atol})")
-        if label.startswith(("SmolLM", "Phi-4", "SeamlessM4T")) and q.dtype == torch.float32:
-            fb = flash_bound(q, k)
+        if (label.startswith(("SmolLM", "Phi-4", "SeamlessM4T", "DeepSeek"))
+                and q.dtype == torch.float32):
+            fb = flash_bound(q, k, v)
             print(f"[2c] B4 {tuple(q.shape)} x {tuple(k.shape)} bound {fb['bound_ms']:.4f} ms "
                   f"(3xTF32, "
                   f"{fb['bound_flop']:.4g} FLOP x {TF32_PASSES}); one TF32 pass "
@@ -1752,7 +1809,7 @@ def time_flash(tag: str, args, kwargs, got, record: dict, limits: dict) -> dict:
     """B4 on a main path's own inputs (one call's), beside its plain twin's
     time (in ``record``), ``scaled_dot_product_attention`` and its bound."""
     q, k, v = args
-    record.update(flash_bound(q, k))
+    record.update(flash_bound(q, k, v))
     fa.flash_attention(q, k, v, **kwargs)  # warm
     record["ms"], _ = cuda_ms(lambda: fa.flash_attention(q, k, v, **kwargs), reps=5)
     g = q.shape[2] // k.shape[2]
@@ -1764,7 +1821,8 @@ def time_flash(tag: str, args, kwargs, got, record: dict, limits: dict) -> dict:
     record["library_ms"], lib_out = cuda_ms(sdpa, reps=5)
     lib_err = float((lib_out.transpose(1, 2) - got).abs().max())
     del qt, kt, vt, lib_out
-    print(f"[{tag}] B4 {tuple(q.shape)} x {tuple(k.shape)} on the path's inputs: kernel "
+    print(f"[{tag}] B4 {tuple(q.shape)} x {tuple(k.shape)} x {tuple(v.shape)} on the path's "
+          f"inputs: kernel "
           f"{record['ms']:.4f} ms, plain twin {record['plain_ms']:.3f} ms, "
           f"scaled_dot_product_attention {record['library_ms']:.4f} ms "
           f"(|diff| {lib_err:.3g}), bound {record['bound_ms']:.4f} ms "
@@ -3089,24 +3147,34 @@ SCENARIO_PATHS = {"10a": "scenario_node_failure", "10b": "scenario_cache_outage"
                   "10c": "scenario_hotspot_drift_hier", "10d": "scenario_geo_client_shift"}
 
 
-def phase_scenarios(dev) -> tuple:
-    """Phase 10: the four cells at once, one process each, after phase 9 so
-    that phase 9's walls are its own. A cell's wall is the solver's launches
-    from the host (99 % of it, PERF.md §6); one after another the cells take
-    ~480 s, which would put the script near its time limit on a slow host.
-    Prints each cell's lines; returns B1's launches by path and the largest
-    busy |difference|."""
-    t_phase = time.perf_counter()
-    with ProcessPoolExecutor(max_workers=len(SCENARIO_PATHS),
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
-        cells = list(pool.map(scenario_cell, SCENARIO_PATHS, [str(dev)] * len(SCENARIO_PATHS)))
+def start_scenarios(dev) -> tuple:
+    """Phase 10's four cells started at once, one spawned process each,
+    before phase 9; ``phase_scenarios`` collects them after it. A cell's
+    wall is the solver's launches from the host (99 % of it, PERF.md §6),
+    and so is most of phase 9's: one after the other the two took 429 s of
+    a 1167 s run of this script on a slow host, near its 1200 s limit, so
+    phase 9's walls are taken beside the cells."""
+    pool = ProcessPoolExecutor(max_workers=len(SCENARIO_PATHS),
+                               mp_context=multiprocessing.get_context("spawn"))
+    futures = [pool.submit(scenario_cell, tag, str(dev)) for tag in SCENARIO_PATHS]
+    return pool, futures, time.perf_counter()
+
+
+def phase_scenarios(started: tuple) -> tuple:
+    """Phase 10: the cells ``start_scenarios`` started, collected. Prints
+    each cell's lines; returns B1's launches by path and the largest busy
+    |difference|."""
+    pool, futures, t_phase = started
+    with pool:
+        cells = [future.result() for future in futures]
     for cell in cells:
         print(cell["log"], end="")
     by_path = {SCENARIO_PATHS[cell["tag"]]: cell["launches"] for cell in cells}
     cells_s = sum(cell["wall"] for cell in cells)
     solver_s = sum(cell["solver_s"] for cell in cells)
     print(f"[10] fcfs launches {by_path}")
-    print(f"[10] phase 10 wall {time.perf_counter() - t_phase:.3f} s (the cells' walls add to "
+    print(f"[10] phase 10 wall {time.perf_counter() - t_phase:.3f} s, phase 9's included (the "
+          f"cells' walls add to "
           f"{cells_s:.3f} s, of it solver {solver_s:.3f} s, {100 * solver_s / cells_s:.1f} %)")
     failed = [msg for cell in cells for msg in cell["failed"]]
     if failed:
@@ -3488,22 +3556,40 @@ def phase_grad(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def plain_errors(args, kwargs, out, slices: int = 1) -> list:
+    """|out - plain twin| at most, for each of ``slices`` slices of the KV
+    heads (with their query heads): the twin run a slice at a time, each
+    on the call's own inputs, since a head's attention reads only its own
+    rows."""
+    q, k, v = args
+    kh = k.shape[2]
+    g, step = q.shape[2] // kh, -(-kh // slices)
+    errs = []
+    for j in range(0, kh, step):
+        heads = slice(j * g, (j + step) * g)
+        want = fa.flash_attention_plain(q[:, :, heads], k[:, :, j:j + step], v[:, :, j:j + step],
+                                        **kwargs)
+        errs.append(float((out[:, :, heads].float() - want.float()).abs().max()))
+    return errs
+
+
 @contextlib.contextmanager
-def held_flash(atol: float = 2e-5):
+def held_flash(atol: float = 2e-5, slices: int = 1):
     """Hold every B4 call a main path makes against the plain twin as it is
-    made, and keep only its error: at Phi-4-mini's width the 288 calls of
-    serving hold 76 GB of inputs and outputs. The record keeps the count,
-    the worst error, the twin's time on the last call and the last call."""
+    made (``plain_errors`` over ``slices`` slices of the heads), and keep
+    only its error: at Phi-4-mini's width the 288 calls of serving hold 76
+    GB of inputs and outputs. The record keeps the count, the worst error,
+    the twin's time on the last call and the last call."""
     fn = fa.flash_attention
     record = dict(calls=0, max_abs_err=0.0, plain_ms=0.0, last=None)
 
     def holder(*args, **kwargs):
         out = fn(*args, **kwargs)
-        record["plain_ms"], want = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs),
+        record["plain_ms"], errs = cuda_ms(lambda: plain_errors(args, kwargs, out, slices),
                                            reps=1)
-        err = float((out.float() - want.float()).abs().max())
-        if not err <= atol:
-            raise AssertionError(f"B4 {tuple(args[0].shape)} differs from plain twin by {err}")
+        err = max(errs)
+        if not all(e <= atol for e in errs):
+            raise AssertionError(f"B4 {tuple(args[0].shape)} differs from plain twin by {errs}")
         record["calls"] += 1
         record["max_abs_err"] = max(record["max_abs_err"], err)
         record["last"] = (args, kwargs, out)
@@ -3681,7 +3767,8 @@ def compare_routes(n_layers: int, fwd, pre, dec) -> set:
     return differ
 
 
-def teacher_forced(tag: str, model, params, batch: dict, pre: dict, dev, stage=None) -> dict:
+def teacher_forced(tag: str, model, params, batch: dict, pre: dict, dev, stage=None,
+                   record: bool = True) -> dict:
     """Under ``no_grad``, every B4 call recorded: the forward of ``batch``'s
     whole sequence, a prefill of ``pre`` (its first GQA_PREFILL tokens)
     with room for the whole sequence, and GQA_DECODE decode steps fed the
@@ -3689,11 +3776,13 @@ def teacher_forced(tag: str, model, params, batch: dict, pre: dict, dev, stage=N
     "prefill" and "decode" (``caches`` the prefill's there, else None).
     Returns the walls, B4's launches in the forward and in the prefill, the
     forward's logits (``full``), the prefill's last-position logits and
-    each step's (``outs``), the caches after decode and the B4 calls."""
+    each step's (``outs``), the caches after decode and the B4 calls (none
+    kept without ``record``)."""
     stage = stage or (lambda name, caches: None)
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    with torch.no_grad(), recorded(fa, "flash_attention") as calls:
+    recorder = recorded(fa, "flash_attention") if record else contextlib.nullcontext([])
+    with torch.no_grad(), recorder as calls:
         stage("forward", None)
         fwd_s, (full, fwd_launches) = best_wall(lambda: counted(
             f"{tag} forward", lambda: model.forward_logits(params, batch), "flash_attention",
@@ -3720,11 +3809,14 @@ def teacher_forced(tag: str, model, params, batch: dict, pre: dict, dev, stage=N
 
 def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) -> dict:
     """13b for one model, cut in depth to ``GQA_DEPTH`` (14a: SeamlessM4T
-    at full depth, its encoder timed alone and fed ``enc_embeds``):
-    ``teacher_forced`` on 2 x 2048 tokens at O3, the prefill's and each
-    step's logits held to the forward's, every B4 call to its plain twin,
-    an encoder-decoder's cross caches after decode bitwise the prefill's;
-    with ``limits``, B4 also timed on the path's last call (``record``)."""
+    at full depth, its encoder timed alone and fed ``enc_embeds``; 15:
+    DeepSeek-V3): ``teacher_forced`` on 2 x 2048 tokens at O3, the
+    prefill's and each step's logits held to the forward's, every B4 call
+    held to its plain twin as it is made (``held_flash`` over HOLD_SLICES
+    slices of the heads), an encoder-decoder's cross caches after decode
+    bitwise the prefill's; the forward and the prefill timed again without
+    the holds; with ``limits``, B4 also timed on the path's last call
+    (``record``)."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3750,8 +3842,13 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
         "" if cfg.n_layers < full_cfg.n_layers else " (full depth)")
     encoder = (f", {cfg.encoder_layers} encoder layers fed enc_embeds "
                f"{tuple(batch['enc_embeds'].shape)}" if cfg.encoder_layers else "")
-    print(f"[{tag}] {arch}: {cut}{encoder}, {cfg.layer_kinds.count('local')} local, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim_}, d_ff "
+    kinds = ", ".join(f"{n} {kind}" for kind, n in collections.Counter(cfg.layer_kinds).items())
+    m = cfg.mla
+    heads = (f"{cfg.n_heads} heads of q/k {m.nope_head_dim + m.rope_head_dim} (nope "
+             f"{m.nope_head_dim} + rope {m.rope_head_dim}) and v {m.v_head_dim}, latent cache "
+             f"{m.kv_lora_rank} + {m.rope_head_dim} a token" if m else
+             f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim_}")
+    print(f"[{tag}] {arch}: {cut}{encoder} ({kinds}), d_model {cfg.d_model}, {heads}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params:.4g} parameters "
           f"({4 * n_params / 1e9:.2f} GB float32)")
     result = dict(params=n_params)
@@ -3769,17 +3866,15 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
             cross.update(caches["period"][0]["cross"])
 
     syncs0 = moe._expert_compute.host_syncs
-    with recorded_routes() as routes:
-        run = teacher_forced(tag, model, params, batch, pre, dev, stage)
+    with recorded_routes() as routes, held_flash(slices=HOLD_SLICES) as held:
+        run = teacher_forced(tag, model, params, batch, pre, dev, stage, record=False)
     syncs = moe._expert_compute.host_syncs - syncs0
     attn_layers = cfg.n_layers
     if run["fwd_launches"] != attn_layers or run["pre_launches"] != attn_layers:
         raise AssertionError(f"{tag} {arch}: B4 launches forward {run['fwd_launches']}, prefill "
                              f"{run['pre_launches']}, expected {attn_layers}")
-    fwd_s, prefill_s, decode_s = run["fwd_s"], run["prefill_s"], run["decode_s"]
-    result.update(launches=run["fwd_launches"] + run["pre_launches"],
-                  prefill_ms=prefill_s * 1e3, forward_ms=fwd_s * 1e3,
-                  decode_ms_per_token=decode_s / GQA_DECODE * 1e3, host_syncs=syncs)
+    if held["calls"] != 2 * attn_layers:
+        raise AssertionError(f"{tag} {arch}: held {held['calls']} B4 calls of {2 * attn_layers}")
     if cfg.encoder_layers:  # decode reads the prefill's cross K/V and never recomputes them
         kv = (cfg.n_layers, GQA_BATCH, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim_)
         after = run["caches"]["period"][0]["cross"]
@@ -3795,19 +3890,23 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
     # the expert sets of the forward against the prefill's and the steps'
     differ = set()
     if cfg.moe is not None:
-        n_moe = cfg.layer_kinds.count("moe")
+        n_moe = sum(_mlp_kind(kind) == "moe" for kind in cfg.layer_kinds)
         fwd_routes = routes[:marks["prefill"]]
         pre_routes = routes[marks["prefill"]:marks["decode"]]
         dec_routes = routes[marks["decode"]:]
+        if not n_moe or len(fwd_routes) != n_moe or len(dec_routes) != n_moe * GQA_DECODE:
+            raise AssertionError(f"{tag} {arch}: {len(fwd_routes)} routing calls in the forward "
+                                 f"and {len(dec_routes)} in decode for {n_moe} MoE layers")
         dec_steps = [dec_routes[i * n_moe:(i + 1) * n_moe] for i in range(GQA_DECODE)]
         differ = compare_routes(n_moe, fwd_routes, pre_routes, dec_steps)
         load = torch.stack([torch.bincount(e.reshape(-1), minlength=cfg.moe.n_experts)
                             for e, _ in pre_routes])
         aux = [float(a) for _, a in pre_routes]
         print(f"[{tag}] {arch} prefill routing ({GQA_BATCH} x {GQA_PREFILL} tokens, top "
-              f"{cfg.moe.top_k} of {cfg.moe.n_experts}): aux loss by layer "
-              f"{[round(a, 7) for a in aux]} (sum {sum(aux):.7f}); per-expert load by layer, "
-              f"min / median / max: {[(int(r.min()), int(r.median()), int(r.max())) for r in load]}; "
+              f"{cfg.moe.top_k} of {cfg.moe.n_experts}, {cfg.moe.n_shared} shared): aux loss by "
+              f"layer {[round(a, 7) for a in aux]} (sum {sum(aux):.7f}); per-expert load by "
+              f"layer, min / median / max: "
+              f"{[(int(r.min()), int(r.median()), int(r.max())) for r in load]}; "
               f"layer 0's load {load[0].tolist()}")
         print(f"[{tag}] {arch}: {len(differ)} (row, position) pairs whose top-{cfg.moe.top_k} "
               f"set differs between the forward and the prefill or decode path"
@@ -3818,24 +3917,18 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
     # the prefill's logits (position 2015) and each step's against the forward
     result.update(max_abs_err_logits=hold_to_forward(tag, arch, run.pop("outs"),
                                                      run.pop("full"), differ))
-
-    # every B4 call of the path against the plain twin on its inputs
-    calls = run.pop("calls")
-    flash_err, plain_ms = hold_flash_calls(f"{tag} {arch}", calls)
-    result.update(max_abs_err=flash_err)
-    args, kwargs, got = calls[-1]
-    print(f"[{tag}] {arch}: {len(calls)} B4 calls (forward and prefill, "
-          f"{tuple(args[0].shape)} x {tuple(args[1].shape)} the last) == plain twin, "
-          f"max_abs_err {flash_err:.3g}")
-    del calls
-    if limits is not None:
-        result.update(record=time_flash(tag, args, kwargs, got,
-                                        dict(max_abs_err=flash_err, plain_ms=plain_ms), limits))
-    del args, kwargs, got
+    with torch.no_grad():  # the forward and the prefill again, without the holds
+        fwd_s, _ = best_wall(lambda: model.forward_logits(params, batch), reps=1)
+        prefill_s, _ = best_wall(lambda: model.prefill(params, pre, cache_len=s), reps=1)
+    decode_s = run["decode_s"]  # decode launches no B4
+    result.update(launches=run["fwd_launches"] + run["pre_launches"],
+                  prefill_ms=prefill_s * 1e3, forward_ms=fwd_s * 1e3,
+                  decode_ms_per_token=decode_s / GQA_DECODE * 1e3, host_syncs=syncs)
 
     if cfg.moe is not None:  # one MoE layer alone, at the prefill's and a step's tokens
         p = params["stack"]["period"][0]["moe"]
-        p = {key: val[0] for key, val in p.items()}
+        p = {key: ({k: v[0] for k, v in val.items()} if isinstance(val, dict) else val[0])
+             for key, val in p.items()}  # the shared expert is a dict of leaves
         h = torch.randn((GQA_BATCH, GQA_PREFILL, cfg.d_model), generator=gen, device=dev)
         with torch.no_grad():
             moe.moe_apply(p, h, cfg)  # warm
@@ -3847,16 +3940,35 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
               f"{result['moe_prefill_ms']:.3f} ms, at {GQA_BATCH} x 1 (a decode step) "
               f"{result['moe_decode_ms']:.3f} ms; {per_call:g} host sync a layer call, "
               f"{syncs} in this model's forward, prefill and {GQA_DECODE} steps")
+        del p, h
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, model
+    torch.cuda.empty_cache()
+
+    # the plain twin whole on the path's last B4 call
+    flash_err = held["max_abs_err"]
+    args, kwargs, got = held.pop("last")
+    plain_ms, _ = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs), reps=1)
+    result.update(max_abs_err=flash_err)
+    print(f"[{tag}] {arch}: {held['calls']} B4 calls (forward and prefill, held as made, the "
+          f"twin over up to {HOLD_SLICES} slices of the heads; {tuple(args[0].shape)} x "
+          f"{tuple(args[1].shape)} x {tuple(args[2].shape)} the last) == plain twin, "
+          f"max_abs_err {flash_err:.3g}")
+    if limits is not None:
+        result.update(record=time_flash(tag, args, kwargs, got,
+                                        dict(max_abs_err=flash_err, plain_ms=plain_ms), limits))
+    del args, kwargs, got
+
     included = " (encoder included)" if cfg.encoder_layers else ""
     print(f"[{tag}] {arch}: "
           + (f"encoder {encoder_s * 1e3:.3f} ms ({GQA_BATCH} x {cfg.encoder_seq} frames), "
              if cfg.encoder_layers else "")
           + f"forward {fwd_s * 1e3:.3f} ms ({GQA_BATCH} x {s} tokens){included}, prefill "
-          f"{prefill_s * 1e3:.3f} ms ({GQA_BATCH} x {GQA_PREFILL}){included}, decode "
+          f"{prefill_s * 1e3:.3f} ms ({GQA_BATCH} x {GQA_PREFILL}){included} (both timed "
+          f"without the holds), decode "
           f"{decode_s / GQA_DECODE * 1e3:.3f} ms/token at batch {GQA_BATCH}; peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall "
-          f"{time.perf_counter() - t0:.3f} s")
-    del params, model
+          f"{peak:.2f} GiB; wall {time.perf_counter() - t0:.3f} s")
+    result.update(peak_gib=peak)
     torch.cuda.empty_cache()
     return result
 
@@ -3867,7 +3979,7 @@ def phase_gqa(dev, limits: dict) -> dict:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     launches, record = phase_phi4_serve(dev, limits)
-    models = {arch: gqa_model_run(arch, dev) for arch in GQA_DEPTH}
+    models = {arch: gqa_model_run(arch, dev) for arch in GQA_DEPTH if arch != MLA_ARCH}
     print(f"[13] phase 13 wall {time.perf_counter() - t0:.3f} s")
     return dict(launches=launches, record=record, models=models)
 
@@ -3892,9 +4004,9 @@ def kernels_in(fn) -> int:
 
 
 def phase_rwkv(dev) -> dict:
-    """14b: ``serve("rwkv6-1.6b", smoke=False)`` with phase 6's load (no
-    prefill may launch a kernel of B1-B4: the path has none), then a
-    forward of 2 x 2048 tokens, a prefill of the first 2016 with the WKV
+    """14b: ``serve("rwkv6-1.6b", smoke=False)`` with 2 batches of phase 6's
+    load (no prefill may launch a kernel of B1-B4: the path has none), then
+    a forward of 2 x 2048 tokens, a prefill of the first 2016 with the WKV
     loop timed, and 32 decode steps held to the forward; the kernels a
     prefill and a decode step launch, counted by the profiler."""
     t0 = time.perf_counter()
@@ -3912,7 +4024,7 @@ def phase_rwkv(dev) -> dict:
 
     lm.Model.prefill = counted_prefill
     try:
-        run = serve("rwkv6-1.6b", smoke=False, device=dev, **SERVE)
+        run = serve("rwkv6-1.6b", smoke=False, device=dev, **RWKV_SERVE)
     finally:
         lm.Model.prefill = prefill
     serve_s = time.perf_counter() - t0
@@ -3922,7 +4034,7 @@ def phase_rwkv(dev) -> dict:
           f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_size} heads of {cfg.rwkv_head_size}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (untied), {n_params:.4g} parameters "
           f"({4 * n_params / 1e9:.2f} GB float32); serve wall {serve_s:.3f} s")
-    if len(prefill_launches) != SERVE["n_batches"] + 1 or any(prefill_launches):
+    if len(prefill_launches) != RWKV_SERVE["n_batches"] + 1 or any(prefill_launches):
         raise AssertionError(f"14b kernel launches per prefill {prefill_launches}: the path has "
                              f"no kernel of B1-B4")
     pi = run.router.pi[0]
@@ -3931,17 +4043,17 @@ def phase_rwkv(dev) -> dict:
     if any(pi[j] <= 0 for r in run.replicas for j in r):
         raise AssertionError(f"14b routed outside pi's support: {run.replicas}, pi {pi}")
     for toks in run.tokens:
-        if toks.shape != (SERVE["batch"], SERVE["gen_len"] + 1) or not (
+        if toks.shape != (RWKV_SERVE["batch"], RWKV_SERVE["gen_len"] + 1) or not (
                 (toks >= 0) & (toks < cfg.vocab)).all():
             raise AssertionError(f"14b generated tokens {tuple(toks.shape)} out of range")
-    tokens_served = SERVE["batch"] * SERVE["prompt_len"]
+    tokens_served = RWKV_SERVE["batch"] * RWKV_SERVE["prompt_len"]
     lat = np.asarray(run.latencies)
     result = dict(params=n_params, serve_prefill_ms=np.mean(run.prefill_s) * 1e3,
-                  serve_decode_ms_per_token=np.mean(run.decode_s) / SERVE["gen_len"] * 1e3)
+                  serve_decode_ms_per_token=np.mean(run.decode_s) / RWKV_SERVE["gen_len"] * 1e3)
     print(f"[14b] serve: {prefill_launches.count(0)} prefills with no kernel launch of B1-B4; "
           f"routes {run.replicas} inside pi's support {np.round(pi, 3)}; prefill "
           f"{result['serve_prefill_ms']:.3f} ms per {tokens_served}-token batch, decode "
-          f"{result['serve_decode_ms_per_token']:.3f} ms/token at batch {SERVE['batch']}; "
+          f"{result['serve_decode_ms_per_token']:.3f} ms/token at batch {RWKV_SERVE['batch']}; "
           f"batch latency mean {lat.mean() * 1e3:.3f} ms, p95 "
           f"{np.quantile(lat, 0.95) * 1e3:.3f} ms")
     del run
@@ -4024,6 +4136,23 @@ def phase_encdec_rwkv(dev, limits: dict) -> dict:
     return dict(encdec=encdec, rwkv=rwkv)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: DeepSeek-V3 (MLA) at full width, B4 at q/k width 192 and v 128.
+# ---------------------------------------------------------------------------
+
+
+def phase_mla(dev, limits: dict) -> dict:
+    """Phase 15: DeepSeek-V3 at full width, 4 of 61 layers, through
+    ``gqa_model_run``: the absorbed decode held to the expanded forward,
+    every B4 call held to the twin as it is made, B4's (192, 128) instance
+    timed on the path's last call."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = gqa_model_run(MLA_ARCH, dev, tag="15", limits=limits)
+    print(f"[15] phase 15 wall {time.perf_counter() - t0:.3f} s")
+    return run
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)  # keep output if the run is cut
@@ -4053,9 +4182,10 @@ def main() -> int:
     del hier_calls, geo_calls
     print(f"[7] phase 7 wall {time.perf_counter() - t7:.3f} s")
     closed_by_path, closed_err, chunk, loop = phase_closed_loop(dev, sol, geo_pi, geo_mean, limits)
+    scenarios = start_scenarios(dev)
     control_by_path, control_err = phase_control_plane(dev, geo_pi, loop)
     del loop
-    scenario_by_path, scenario_err = phase_scenarios(dev)
+    scenario_by_path, scenario_err = phase_scenarios(scenarios)
     ckpt = phase_checkpoint(dev, limits)
     t12 = time.perf_counter()
     training = phase_train(dev, limits)
@@ -4063,6 +4193,7 @@ def main() -> int:
     print(f"[12] phase 12 wall {time.perf_counter() - t12:.3f} s")
     gqa = phase_gqa(dev, limits)
     late = phase_encdec_rwkv(dev, limits)
+    mla = phase_mla(dev, limits)
     by_path = {"quickstart_simulate": quick_launches,
                "catalog_simulate_fleet": fleet_launches,
                "figures_simulate": figure_launches,
@@ -4130,8 +4261,9 @@ def main() -> int:
                    "phi4_serve_prefill": gqa["launches"],
                    **{f"{arch}_forward_prefill": run["launches"]
                       for arch, run in gqa["models"].items()},
-                   "seamless-m4t-medium_forward_prefill": late["encdec"]["launches"]}
-    phi4, encdec = gqa["record"], late["encdec"]["record"]
+                   "seamless-m4t-medium_forward_prefill": late["encdec"]["launches"],
+                   f"{MLA_ARCH}_forward_prefill": mla["launches"]}
+    phi4, encdec, qk192 = gqa["record"], late["encdec"]["record"], mla["record"]
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
@@ -4141,7 +4273,7 @@ def main() -> int:
         "launches": sum(flash_paths.values()),
         "launches_by_path": flash_paths,
         "max_abs_err": max(flash_err, flash["max_abs_err"], grad["record"]["max_abs_err"],
-                           phi4["max_abs_err"], encdec["max_abs_err"],
+                           phi4["max_abs_err"], encdec["max_abs_err"], qk192["max_abs_err"],
                            *(run["max_abs_err"] for run in gqa["models"].values())),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
@@ -4171,6 +4303,13 @@ def main() -> int:
         "bound_ms_hd64_g1": encdec["bound_ms"],
         "bound_by_hd64_g1": encdec["bound_by"],
         "library_ms_hd64_g1": encdec["library_ms"],
+        # phase 15's q/k width 192, v width 128 at DeepSeek-V3's MLA prefill
+        # (2, 2016, 128, 128, 192 / 128)
+        "ms_qk192_v128": qk192["ms"],
+        "plain_ms_qk192_v128": qk192["plain_ms"],
+        "bound_ms_qk192_v128": qk192["bound_ms"],
+        "bound_by_qk192_v128": qk192["bound_by"],
+        "library_ms_qk192_v128": qk192["library_ms"],
     })
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(card)  # again, so that the end of the output names the card

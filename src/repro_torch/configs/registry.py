@@ -3,17 +3,18 @@
 The reference registers ten architectures. The port builds those whose
 layer kinds it has ported: SmolLM-135M, the five GQA models of head width
 128 (StarCoder2, Phi-4-mini, Gemma3 with its q/k norm and local layers,
-the Qwen3 MoE, Qwen2-VL with M-RoPE), the encoder-decoder
-SeamlessM4T-medium and the attention-free RWKV6-1.6B. The other two,
-DeepSeek-V3 and RecurrentGemma, raise ``KeyError`` naming ROADMAP A20
-(their MLA and RG-LRU layers come with it); a name neither package knows
-raises as in the reference.
+the Qwen3 MoE, Qwen2-VL with M-RoPE), DeepSeek-V3 (MLA, 256 routed experts
+and a shared one, three leading dense layers), the encoder-decoder
+SeamlessM4T-medium and the attention-free RWKV6-1.6B. The last one,
+RecurrentGemma, raises ``KeyError`` naming ROADMAP A20 (its RG-LRU layers
+come with it); a name neither package knows raises as in the reference.
 """
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
 from . import (
+    deepseek_v3_671b,
     gemma3_27b,
     phi4_mini_3p8b,
     qwen2_vl_2b,
@@ -30,6 +31,7 @@ _MODULES = {
     "phi4-mini-3.8b": phi4_mini_3p8b,
     "gemma3-27b": gemma3_27b,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+    "deepseek-v3-671b": deepseek_v3_671b,
     "seamless-m4t-medium": seamless_m4t_medium,
     "qwen2-vl-2b": qwen2_vl_2b,
     "rwkv6-1.6b": rwkv6_1p6b,

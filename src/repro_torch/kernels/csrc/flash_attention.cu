@@ -3,15 +3,19 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention_pallas` in
 // src/repro/kernels/flash_attention.py:84 (body `_kernel` :37). For q
-// (B, Tq, H, hd) and k/v (B, Tk, KH, hd), G = H / KH, query head h reading
-// KV head h / G:
+// (B, Tq, H, hd), k (B, Tk, KH, hd) and v (B, Tk, KH, vd), G = H / KH,
+// query head h reading KV head h / G:
 //
 //     s[iq, ik] = (q[iq] . k[ik]) * scale              (float32)
 //     valid     = (ik <= iq if causal) && (ik > iq - window if windowed)
 //     out[iq]   = sum_ik softmax(s)[ik] v[ik]           over the valid keys
 //
 // with an online softmax (running max m, normaliser l, accumulator acc) and
-// out = acc / max(l, 1e-30), cast to the input type (float32 or bfloat16).
+// out (B, Tq, H, vd) = acc / max(l, 1e-30), cast to the input type (float32
+// or bfloat16). The reference's kernel takes one width (vd = hd); its lax
+// chunked_sdpa (src/repro/models/attention_opt.py:30), which the kernel
+// stands for on the model path, also takes vd != hd, and MLA (DeepSeek-V3)
+// runs hd = 192 (nope 128 + rope 64) against vd = 128.
 // Keys [Tk, Tkp) are the reference's zero padding to its key block; they
 // are masked only by the causal test, as there. A row with no valid key at
 // all gets equal weights on [0, Tkp), which is what the reference's
@@ -54,13 +58,15 @@
 //   column c+4 is key 2c+1, and V's B fragment is read in the same order
 //   (rows 2c and 2c+1 of the group), so the sum over keys is unchanged.
 //   (m16n8k16 bf16 needs no permutation: its A layout is the accumulator's.)
-// - Bank conflicts: K and V rows are padded to hd + 4 floats (hd + 8
-//   bfloat16, 16 bytes). K's B fragment reads row 8nt+g, column 8kk+t,
-//   and V's reads rows 2t, 2t+1, column g; with that stride the 32 lanes
-//   of a float32 read hit 32 distinct banks for every hd in
-//   {8, 16, 32, 64, 128}.
-// - hd in {8, 16, 32, 64, 128} are all instantiated. At hd = 8 a float32
-//   product is one k-step; the bfloat16 k16 step zero-fills columns >= hd.
+// - Bank conflicts: K rows are padded to hd + 4 floats and V rows to
+//   vd + 4 (hd + 8 and vd + 8 bfloat16, 16 bytes). K's B fragment reads
+//   row 8nt+g, column 8kk+t, and V's reads rows 2t, 2t+1, column g; with
+//   those strides the 32 lanes of a float32 read hit 32 distinct banks for
+//   every width in {8, 16, 32, 64, 128, 192} (a stride of 4 mod 32 words
+//   puts lane (g, t) of K on bank 4g + t and of V on 8t + g).
+// - (hd, vd) in (8, 8), (16, 16), (32, 32), (64, 64), (128, 128) and
+//   (192, 128) are instantiated. At hd = 8 a float32 product is one
+//   k-step; the bfloat16 k16 step zero-fills columns >= hd.
 // - Ragged T = 2016 with G = 3 is 6048 rows, 94.5 blocks of 64: the last
 //   block's rows past Tq compute and never store.
 // - Accuracy: the tensor cores add into their float32 accumulator more
@@ -83,6 +89,22 @@
 //   Phi-4-mini's prefill (tools/b4_hd128_variants.py) 64-key tiles ran
 //   55 % slower, and folding each 8-column group of P V into O as soon as
 //   it is summed (4 registers instead of 64) ran no faster.
+// - Registers and shared memory at (hd, vd) = (192, 128), MLA's widths, in
+//   float32: Q big is 96 registers (24 k-steps), O 64, a whole tile's P V
+//   64 and S 16 at 32-key tiles: 240 before any fragment is in flight.
+//   So this instance folds each 8-column group of P V into O as soon as it
+//   is summed over the tile's keys (`fold_pv`): P is split once a tile and
+//   P V costs 4 registers; each group is still summed from zero and added
+//   by fmaf, the same sums in the same order. Its Q small is 48 KB, and a
+//   32-key ring 84 KB, one block an SM; the key tile is 16 keys (a 41 KB
+//   ring), two blocks an SM (`key_tile`: the largest of 64, 32 and 16 keys
+//   that leaves room for two blocks, which also gives every other
+//   instance its tile). At MLA's prefill (tools/b4_hd128_variants.py, an
+//   H100 at 700 W) this design took 8.2-8.4 ms; 32-key tiles (one block
+//   an SM) 11.6-11.8 ms, no fold (156 bytes of spill stores) 8.5-8.6 ms, and Q
+//   big parked in shared memory (216 registers, one block an SM) 10.3-10.4
+//   ms. The bfloat16 instance keeps a whole tile of P V (64-key tiles,
+//   255 registers, no spill).
 //
 // What bounds it on an H100 SXM (NVIDIA's published peaks, at the full
 // 700 W power limit). At SmolLM-135M's prefill, (B, T, H, KH, hd) =
@@ -92,7 +114,10 @@
 // one TF32 pass would be 0.038 ms, float32 outside the tensor cores
 // 0.280 ms, and the bytes q + k + v + out (49.5 MB) 0.015 ms. At
 // Phi-4-mini's, (4, 2016, 24, 8, 128), the band is 9.99e10 FLOP: three
-// TF32 passes 0.606 ms, one pass 0.202 ms.
+// TF32 passes 0.606 ms, one pass 0.202 ms. At MLA's prefill in
+// DeepSeek-V3, (B, T, H, KH, hd, vd) = (2, 2016, 128, 128, 192, 128), the
+// band is 2 * (hd + vd) per pair, 3.331e11 FLOP: three TF32 passes 2.019
+// ms, one pass 0.673 ms, the bytes (1.321 GB) 0.394 ms.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -113,17 +138,35 @@ constexpr float NEG = -1e30f;
 template <typename T>
 __host__ __device__ constexpr int pad() { return 16 / (int)sizeof(T); }  // 16 bytes of row padding
 
-// keys per shared-memory tile: 64, or 32 for float32 at hd = 128, where a
-// 64-key ring would leave room for one block an SM
-template <typename T, int HD>
-__host__ __device__ constexpr int key_tile() {
-  return std::is_same<T, float>::value && HD >= 128 ? 32 : 64;
+constexpr int TWO_BLOCKS_SMEM = 233472 / 2 - 1024;  // an SM's shared memory, per block
+
+// the K/V ring of `kt`-key tiles and, for float32, Q small
+template <typename T, int HD, int VD>
+__host__ __device__ constexpr int smem_bytes_at(int kt) {
+  return STAGES * kt * (HD + VD + 2 * pad<T>()) * (int)sizeof(T) +
+         (std::is_same<T, float>::value ? WARPS * (HD / 8) * 32 * 16 : 0);  // Q small
 }
 
-template <typename T, int HD>
+// keys per shared-memory tile: the largest of 64, 32 and 16 that leaves
+// room for two blocks an SM (float32: 32 at hd = 128, 16 at (192, 128))
+template <typename T, int HD, int VD>
+__host__ __device__ constexpr int key_tile() {
+  return smem_bytes_at<T, HD, VD>(64) <= TWO_BLOCKS_SMEM   ? 64
+         : smem_bytes_at<T, HD, VD>(32) <= TWO_BLOCKS_SMEM ? 32
+                                                           : 16;
+}
+
+template <typename T, int HD, int VD>
 __host__ __device__ constexpr int smem_bytes() {
-  return STAGES * 2 * key_tile<T, HD>() * (HD + pad<T>()) * (int)sizeof(T) +
-         (std::is_same<T, float>::value ? WARPS * (HD / 8) * 32 * 16 : 0);  // Q small
+  return smem_bytes_at<T, HD, VD>(key_tile<T, HD, VD>());
+}
+
+// fold each 8-column group of P V into O as soon as it is summed, where
+// Q's A fragments, O and a whole tile's P V would take more than 192
+// registers (float32 at (192, 128): 96 + 64 + 64)
+template <typename T, int HD, int VD>
+__host__ __device__ constexpr bool fold_pv() {
+  return (std::is_same<T, float>::value ? HD / 2 : (HD + 15) / 16 * 4) + VD > 192;
 }
 
 // cvt.rna.tf32.f32 on finite x (round to nearest, ties away from zero, 10
@@ -197,19 +240,21 @@ __device__ __forceinline__ void put2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int VD>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        int tq, int tk, int tkp, int h, int kh, float scale,
                        int causal, int has_window, int window) {
   constexpr bool F32 = std::is_same<T, float>::value;
-  constexpr int KT = key_tile<T, HD>();    // keys per shared-memory tile
+  constexpr int KT = key_tile<T, HD, VD>();  // keys per shared-memory tile
   constexpr int NT = KT / 8;                // 8-key groups per tile
-  constexpr int LD = HD + pad<T>();        // shared row stride, elements
+  constexpr int LDK = HD + pad<T>();        // shared row stride of K, elements
+  constexpr int LDV = VD + pad<T>();        // shared row stride of V, elements
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte copy
-  constexpr int CPR = HD / EPC;             // copies per key row
-  constexpr int DN = HD / 8;                // 8-wide column groups of the output
+  constexpr int CPRK = HD / EPC, CPRV = VD / EPC;  // copies per key row of K, of V
+  constexpr int CPR = CPRK > CPRV ? CPRK : CPRV;
+  constexpr int DN = VD / 8;                // 8-wide column groups of the output
   constexpr int KS = F32 ? HD / 8 : (HD + 15) / 16;  // k-steps of Q K^T
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -227,7 +272,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the thread's two rows: r = 0 is row gq of the warp, r = 1 row gq + 8
   int lo[2], hi[2];
   bool active[2], all_masked[2];
-  size_t row_off[2];
+  size_t row_off[2], out_off[2];  // q's and the output's row, elements
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const long long f = (long long)tile * ROWS + 16 * warp + gq + 8 * r;
@@ -236,9 +281,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     all_masked[r] = false;
     lo[r] = INT_MAX;  // an idle row sees no key
     hi[r] = INT_MIN;
-    row_off[r] = 0;
+    row_off[r] = out_off[r] = 0;
     if (active[r]) {
-      row_off[r] = (((size_t)b * tq + iq) * h + (size_t)kvh * g_size + (int)(f % g_size)) * HD;
+      const size_t row = ((size_t)b * tq + iq) * h + (size_t)kvh * g_size + (int)(f % g_size);
+      row_off[r] = row * HD;
+      out_off[r] = row * VD;
       hi[r] = causal ? min(tkp, iq + 1) : tkp;
       lo[r] = has_window ? max(0, iq - window + 1) : 0;
       if (lo[r] >= hi[r]) {  // every key masked: equal weights, as the reference
@@ -282,7 +329,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // (uint4 [warp][kk][lane], read back by the same thread); bfloat16 as
   // packed pairs in registers
   uint4* const qsmall =
-      reinterpret_cast<uint4*>(smem_raw + STAGES * 2 * KT * LD * sizeof(T)) + warp * KS * 32 + lane;
+      reinterpret_cast<uint4*>(smem_raw + STAGES * KT * (LDK + LDV) * sizeof(T)) + warp * KS * 32 +
+      lane;
   uint32_t qa[KS][4];
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
@@ -309,18 +357,23 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < DN; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 
-  const size_t kv_row0 = (size_t)b * tk * kh + kvh;  // key ik at (kv_row0 + ik*kh)*HD
-  auto stage_k = [&](int s) { return smem + (size_t)s * 2 * KT * LD; };
+  // key ik at (kv_row0 + ik*kh)*HD in k and (kv_row0 + ik*kh)*VD in v
+  const size_t kv_row0 = (size_t)b * tk * kh + kvh;
+  auto stage_k = [&](int s) { return smem + (size_t)s * KT * (LDK + LDV); };
   auto load_tile = [&](int k0, int s) {
     T* ks = stage_k(s);
-    T* vs = ks + KT * LD;
+    T* vs = ks + KT * LDK;
     for (int c = threadIdx.x; c < KT * CPR; c += THREADS) {
       const int j = c / CPR, part = c % CPR;
       const int ik = k0 + j;
       const bool real = ik < tk;  // padded keys are zeros
-      const size_t off = real ? (kv_row0 + (size_t)ik * kh) * HD + part * EPC : 0;
-      cp_async16(ks + j * LD + part * EPC, k + off, real ? 16 : 0);
-      cp_async16(vs + j * LD + part * EPC, v + off, real ? 16 : 0);
+      const size_t row = kv_row0 + (size_t)ik * kh;
+      if (CPRK == CPR || part < CPRK)
+        cp_async16(ks + j * LDK + part * EPC, k + (real ? row * HD + part * EPC : 0),
+                   real ? 16 : 0);
+      if (CPRV == CPR || part < CPRV)
+        cp_async16(vs + j * LDV + part * EPC, v + (real ? row * VD + part * EPC : 0),
+                   real ? 16 : 0);
     }
   };
 
@@ -334,10 +387,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait1();  // this tile's copies (all but the newest group) landed
     __syncthreads();
     const T* ks = stage_k(it % STAGES);
-    const T* vs = ks + KT * LD;
+    const T* vs = ks + KT * LDK;
 
     if (k0 < whi && k0 + KT > wlo) {  // warp-uniform: some row sees the tile
-      // S = Q K^T for 16 rows x 64 keys; s[nt] is keys k0 + 8nt .. + 7
+      // S = Q K^T for 16 rows x KT keys; s[nt] is keys k0 + 8nt .. + 7
       float s[NT][4];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
@@ -350,7 +403,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const T* kr = ks + (8 * nt + gq) * LD;
+          const T* kr = ks + (8 * nt + gq) * LDK;
           if constexpr (F32) {
             uint32_t bb0, bs0, bb1, bs1;
             split(kr[8 * kk + tq4], bb0, bs0);
@@ -403,46 +456,74 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // O = alpha O + P V, with this tile's P V taken from zero and added in
       // float32 (the tensor cores' own accumulation is coarser than
       // float32's round to nearest, and O runs over every tile)
-      float pv[DN][4];
-#pragma unroll
-      for (int d = 0; d < DN; ++d) pv[d][0] = pv[d][1] = pv[d][2] = pv[d][3] = 0.f;
-      if constexpr (F32) {
+      if constexpr (fold_pv<T, HD, VD>()) {
+        static_assert(F32, "the fold is written for the float32 instances");
+        // P split once a tile; each 8-column group of P V summed over the
+        // tile's keys, then folded into O
+        uint32_t pb[NT][4], ps[NT][4];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          // A's column tq4 is key 2 tq4, column tq4 + 4 is key 2 tq4 + 1
-          uint32_t pb[4], ps[4];
-          split(s[nt][0], pb[0], ps[0]);
-          split(s[nt][2], pb[1], ps[1]);
-          split(s[nt][1], pb[2], ps[2]);
-          split(s[nt][3], pb[3], ps[3]);
-          const T* vr = vs + (8 * nt + 2 * tq4) * LD + gq;
+          split(s[nt][0], pb[nt][0], ps[nt][0]);
+          split(s[nt][2], pb[nt][1], ps[nt][1]);
+          split(s[nt][1], pb[nt][2], ps[nt][2]);
+          split(s[nt][3], pb[nt][3], ps[nt][3]);
+        }
 #pragma unroll
-          for (int d = 0; d < DN; ++d) {
+        for (int d = 0; d < DN; ++d) {
+          float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const T* vr = vs + (8 * nt + 2 * tq4) * LDV + gq + 8 * d;
             uint32_t bb0, bs0, bb1, bs1;
-            split(vr[8 * d], bb0, bs0);
-            split(vr[8 * d + LD], bb1, bs1);
-            mma_3xtf32(pv[d], pb, ps, bb0, bb1, bs0, bs1);
+            split(vr[0], bb0, bs0);
+            split(vr[LDV], bb1, bs1);
+            mma_3xtf32(pv, pb[nt], ps[nt], bb0, bb1, bs0, bs1);
           }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[d][e] = fmaf(o[d][e], alpha[e >> 1], pv[e]);
         }
       } else {
+        float pv[DN][4];
 #pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {  // 16 keys a k-step
-          const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                                  pack_bf16(s[2 * j][2], s[2 * j][3]),
-                                  pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                  pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-          const T* vr = vs + (16 * j + 2 * tq4) * LD + gq;
+        for (int d = 0; d < DN; ++d) pv[d][0] = pv[d][1] = pv[d][2] = pv[d][3] = 0.f;
+        if constexpr (F32) {
 #pragma unroll
-          for (int d = 0; d < DN; ++d) {
-            const T* x = vr + 8 * d;
-            mma_bf16(pv[d], pa, pack_bf16(x[0], x[LD]), pack_bf16(x[8 * LD], x[9 * LD]));
+          for (int nt = 0; nt < NT; ++nt) {
+            // A's column tq4 is key 2 tq4, column tq4 + 4 is key 2 tq4 + 1
+            uint32_t pb[4], ps[4];
+            split(s[nt][0], pb[0], ps[0]);
+            split(s[nt][2], pb[1], ps[1]);
+            split(s[nt][1], pb[2], ps[2]);
+            split(s[nt][3], pb[3], ps[3]);
+            const T* vr = vs + (8 * nt + 2 * tq4) * LDV + gq;
+#pragma unroll
+            for (int d = 0; d < DN; ++d) {
+              uint32_t bb0, bs0, bb1, bs1;
+              split(vr[8 * d], bb0, bs0);
+              split(vr[8 * d + LDV], bb1, bs1);
+              mma_3xtf32(pv[d], pb, ps, bb0, bb1, bs0, bs1);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT / 2; ++j) {  // 16 keys a k-step
+            const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                    pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                    pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                    pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+            const T* vr = vs + (16 * j + 2 * tq4) * LDV + gq;
+#pragma unroll
+            for (int d = 0; d < DN; ++d) {
+              const T* x = vr + 8 * d;
+              mma_bf16(pv[d], pa, pack_bf16(x[0], x[LDV]), pack_bf16(x[8 * LDV], x[9 * LDV]));
+            }
           }
         }
-      }
 #pragma unroll
-      for (int d = 0; d < DN; ++d) {
+        for (int d = 0; d < DN; ++d) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[d][e] = fmaf(o[d][e], alpha[e >> 1], pv[d][e]);
+          for (int e = 0; e < 4; ++e) o[d][e] = fmaf(o[d][e], alpha[e >> 1], pv[d][e]);
+        }
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
@@ -454,17 +535,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (active[r]) {
 #pragma unroll
       for (int d = 0; d < DN; ++d)
-        put2(out + row_off[r] + 8 * d + 2 * tq4, o[d][2 * r] / den, o[d][2 * r + 1] / den);
+        put2(out + out_off[r] + 8 * d + 2 * tq4, o[d][2 * r] / den, o[d][2 * r + 1] / den);
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int VD = HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, int b,
                       int tq, int tk, int tkp, int h, int kh, float scale, int causal,
                       int has_window, int window, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, HD>;
-  constexpr int bytes = smem_bytes<T, HD>();
+  auto kernel = flash_attention_kernel<T, HD, VD>;
+  constexpr int bytes = smem_bytes<T, HD, VD>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -479,8 +560,11 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, in
 template <typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out,
                          int b, int tq, int tk, int tkp, int h, int kh, int hd,
-                         float scale, int causal, int has_window, int window,
+                         int vd, float scale, int causal, int has_window, int window,
                          cudaStream_t stream) {
+  if (hd == 192 && vd == 128)
+    return launch_hd<T, 192, 128>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
+  if (vd != hd) return cudaErrorInvalidValue;
   switch (hd) {
     case 8: return launch_hd<T, 8>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
     case 16: return launch_hd<T, 16>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
@@ -493,13 +577,14 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// Launch on `stream`; no synchronise, no allocation. dtype 0 is float32,
-// 1 bfloat16. Every pointer must be 16-byte aligned (cp.async, paired
-// stores). Returns the
-// cudaError_t of the launch (0 on success).
+// Launch on `stream`; no synchronise, no allocation. hd is q's and k's
+// width, vd v's and the output's. dtype 0 is float32, 1 bfloat16. Every
+// pointer must be 16-byte aligned (cp.async, paired stores). Returns the
+// cudaError_t of the launch (0 on success; cudaErrorInvalidValue for a
+// width pair that is not instantiated).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int b, int tq, int tk, int tkp,
-                                      int h, int kh, int hd, int dtype, float scale,
+                                      int h, int kh, int hd, int vd, int dtype, float scale,
                                       int causal, int has_window, int window,
                                       void* stream) {
   if (b < 1 || b > 65535 || tq < 1 || tk < 0 || tkp < tk || kh < 1 || kh > 65535 ||
@@ -509,10 +594,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_typed<float>(q, k, v, out, b, tq, tk, tkp, h, kh, hd, scale,
+    return (int)launch_typed<float>(q, k, v, out, b, tq, tk, tkp, h, kh, hd, vd, scale,
                                     causal, has_window, window, s);
   if (dtype == 1)
-    return (int)launch_typed<__nv_bfloat16>(q, k, v, out, b, tq, tk, tkp, h, kh, hd,
+    return (int)launch_typed<__nv_bfloat16>(q, k, v, out, b, tq, tk, tkp, h, kh, hd, vd,
                                             scale, causal, has_window, window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,18 @@
 """Causal / sliding-window GQA flash attention: a CUDA kernel, its plain twin
 and a gradient.
 
-Attention for q (B, Tq, H, hd) against k/v (B, Tk, KH, hd), with GQA
-groups G = H / KH: query head ``h`` reads KV head ``h // G``.
+Attention for q (B, Tq, H, hd) against k (B, Tk, KH, hd) and v
+(B, Tk, KH, vd), with GQA groups G = H / KH: query head ``h`` reads KV head
+``h // G``. The output is (B, Tq, H, vd).
 
     s[iq, ik] = (q[iq] . k[ik]) * scale        (accumulated in float32)
     masked    = not (ik <= iq if causal) or not (ik > iq - window if window)
     out[iq]   = softmax over ik of s, masked scores set to NEG = -1e30
+
+The reference's Pallas kernel takes one width (vd = hd). Its lax
+``chunked_sdpa``, which this kernel stands for on the model path, takes a v
+width of its own, and MLA (DeepSeek-V3) runs hd = 192 against vd = 128; so
+the kernel is built for the width pairs in ``HEAD_DIMS``.
 
 Indices are absolute from 0, so Tq != Tk is allowed. Keys are padded with
 zeros to a multiple of ``k_blk``; a padded key is masked only by the causal
@@ -49,7 +55,8 @@ from ._build import build_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NEG = -1e30
-HEAD_DIMS = (8, 16, 32, 64, 128)  # head widths the kernel is instantiated for
+# (q/k width, v width) pairs the kernel is instantiated for
+HEAD_DIMS = ((8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 MAX_GROUP = 128  # the kernel's block holds 128 query rows of one KV head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -59,7 +66,7 @@ def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel's shared library."""
     lib = build_library(SOURCE)
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     lib.flash_attention_launch.restype = ctypes.c_int
@@ -71,12 +78,12 @@ def _blocks(q: Tensor, k: Tensor, v: Tensor, causal: bool, k_blk: int) -> int:
     key length."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(
-            f"need q (B,Tq,H,hd), k/v (B,Tk,KH,hd); got {tuple(q.shape)}, "
+            f"need q (B,Tq,H,hd), k (B,Tk,KH,hd), v (B,Tk,KH,vd); got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}"
         )
     b, tq, h, hd = q.shape
     tk, kh = k.shape[1], k.shape[2]
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd or h % kh:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != hd or h % kh:
         raise ValueError(
             f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} (H must be a multiple of KH)"
@@ -106,7 +113,7 @@ def flash_attention_plain(
     """
     tkp = _blocks(q, k, v, causal, k_blk)
     b, tq, h, hd = q.shape
-    tk, kh = k.shape[1], k.shape[2]
+    tk, kh, vd = k.shape[1], k.shape[2], v.shape[3]
     g = h // kh
     k_blk = min(k_blk, tk)
     if tkp > tk:
@@ -115,7 +122,7 @@ def flash_attention_plain(
     qg = q.reshape(b, tq, kh, g, hd)
     m = torch.full((b, kh, g, tq), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kh, g, tq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, kh, g, tq, hd), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kh, g, tq, vd), dtype=torch.float32, device=q.device)
     iq = torch.arange(tq, device=q.device)[:, None]
     for k0 in range(0, tkp, k_blk):
         kb, vb = k[:, k0:k0 + k_blk], v[:, k0:k0 + k_blk]
@@ -135,7 +142,7 @@ def flash_attention_plain(
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, hd).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, vd).to(q.dtype)
 
 
 def flash_attention_cuda(
@@ -152,11 +159,17 @@ def flash_attention_cuda(
 
     ``k_pad`` zero keys are appended to k/v (the reference's block padding).
     Inputs must be contiguous float32 or bfloat16 CUDA tensors of one dtype
-    on one device, with hd in ``HEAD_DIMS`` and G = H / KH at most
-    ``MAX_GROUP``.
+    on one device, with (hd, vd) in ``HEAD_DIMS`` and G = H / KH at most
+    ``MAX_GROUP``; any other width pair raises.
     """
     b, tq, h, hd = q.shape
-    tk, kh = k.shape[1], k.shape[2]
+    tk, kh, vd = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != hd or h % kh:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if (hd, vd) not in HEAD_DIMS:
+        raise ValueError(f"head widths (q/k {hd}, v {vd}) are not a pair the kernel takes: "
+                         f"{HEAD_DIMS}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda or x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, expected one CUDA device")
@@ -164,15 +177,11 @@ def flash_attention_cuda(
             raise ValueError(f"{name} has dtype {x.dtype}; need float32 or bfloat16, all alike")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd or h % kh:
-        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} is not one the kernel takes: {HEAD_DIMS}")
     if h // kh > MAX_GROUP:
         raise ValueError(f"GQA group {h // kh} exceeds the kernel's {MAX_GROUP}")
     if window is not None and window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
-    out = torch.empty_like(q)
+    out = q.new_empty((b, tq, h, vd))
     if out.numel() == 0:
         return out
     lib = load_library()
@@ -180,7 +189,7 @@ def flash_attention_cuda(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, tq, tk, tk + k_pad, h, kh, hd, _DTYPES[q.dtype], float(scale),
+            b, tq, tk, tk + k_pad, h, kh, hd, vd, _DTYPES[q.dtype], float(scale),
             int(causal), 0 if window is None else 1, 0 if window is None else int(window),
             stream,
         )
@@ -226,7 +235,7 @@ def flash_attention_backward(
     """
     tkp = _blocks(q, k, v, causal, k_blk)
     b, tq, h, hd = q.shape
-    tk, kh = k.shape[1], k.shape[2]
+    tk, kh, vd = k.shape[1], k.shape[2], v.shape[3]
     g = h // kh
     k_blk = min(k_blk, tk)
     kf, vf = k.float(), v.float()
@@ -234,9 +243,9 @@ def flash_attention_backward(
         pad = (0, 0, 0, 0, 0, tkp - tk)
         kf, vf = torch.nn.functional.pad(kf, pad), torch.nn.functional.pad(vf, pad)
     qg = q.float().reshape(b, tq, kh, g, hd)
-    dog = dout.float().reshape(b, tq, kh, g, hd)
+    dog = dout.float().reshape(b, tq, kh, g, vd)
     # rowsum(dO o O), (b, kh, g, tq)
-    delta = (dog * out.float().reshape(b, tq, kh, g, hd)).sum(-1).permute(0, 2, 3, 1)
+    delta = (dog * out.float().reshape(b, tq, kh, g, vd)).sum(-1).permute(0, 2, 3, 1)
     iq = torch.arange(tq, device=q.device)[:, None]
 
     def scores(k0: int) -> tuple[Tensor, Tensor]:
@@ -260,7 +269,7 @@ def flash_attention_backward(
 
     dq = torch.zeros_like(qg)
     dk = torch.empty((b, tkp, kh, hd), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((b, tkp, kh, vd), dtype=torch.float32, device=q.device)
     for k0 in range(0, tkp, k_blk):
         s, mask = scores(k0)
         p = torch.exp(s - m[..., None]) / l[..., None]
@@ -299,7 +308,8 @@ def flash_attention(
     q_blk: int = 512,
     k_blk: int = 512,
 ) -> Tensor:
-    """q (B,Tq,H,hd); k/v (B,Tk,KH,hd) -> (B,Tq,H,hd), where the tensors live.
+    """q (B,Tq,H,hd), k (B,Tk,KH,hd), v (B,Tk,KH,vd) -> (B,Tq,H,vd), where
+    the tensors live.
 
     Block sizes follow the reference: ``q_blk = min(q_blk, Tq)``,
     ``k_blk = min(k_blk, Tk)``, keys padded to a multiple of ``k_blk``, and

@@ -34,17 +34,17 @@ def chunked_sdpa(
     q_blk: int = 1024,
     k_blk: int = 1024,
 ) -> Tensor:
-    """q (B,Tq,H,hd); k/v (B,Tk,KH,hd) GQA; returns (B,Tq,H,hd).
+    """q (B,Tq,H,hd); k (B,Tk,KH,hd), v (B,Tk,KH,vd) GQA; returns
+    (B,Tq,H,vd).
 
     Queries are at positions 0..Tq-1 against keys 0..Tk-1 with Tq == Tk
-    (train / prefill self-attention; decode keeps the naive path). The
-    block sizes only tile the work: a ragged last tile is fine, and
-    non-causal attention is run as one key block, so it needs no padding.
+    (train / prefill self-attention; decode keeps the naive path). The v
+    width may differ from q's and k's, as in the reference (MLA: 192 and
+    128); on the card the pair must be one kernel B4 is built for
+    (``HEAD_DIMS``). The block sizes only tile the work: a ragged last tile
+    is fine, and non-causal attention is run as one key block, so it needs
+    no padding.
     """
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            "a v head dim other than q's (MLA) is not ported yet (ROADMAP A20)"
-        )
     if not causal:
         k_blk = k.shape[1]
     return fa.flash_attention(

@@ -4,13 +4,14 @@ A copy of ``repro/models/config.py`` (plain frozen dataclasses, no JAX), so
 that the port imports nothing of the reference. The layer stack is
 described by ``prefix`` (leading layers), ``period`` (a repeating pattern
 run ``n_periods`` times; the reference scans it) and ``suffix`` (trailing
-layers). Layer kinds (the port runs attn, dense, local and moe so far):
+layers). Layer kinds (the port runs all but rglru so far):
 
   attn    — full causal self-attention block (GQA + RoPE) + dense MLP
   local   — sliding-window causal attention block + dense MLP
   dense   — alias of attn (used for MoE models' leading dense layers)
   moe     — attention block + mixture-of-experts MLP
-  mla     — multi-head latent attention (DeepSeek) + MoE or dense MLP
+  mla     — multi-head latent attention (DeepSeek) + MoE MLP
+  mla_dense — the same attention + dense MLP (DeepSeek's leading layers)
   rglru   — RG-LRU recurrent block (RecurrentGemma) + gated MLP
   rwkv    — RWKV6 time-mix + channel-mix (attention-free)
   enc     — bidirectional encoder block (enc-dec models)

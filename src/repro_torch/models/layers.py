@@ -1,13 +1,14 @@
 """Core layer primitives: norms, RoPE and M-RoPE, GQA self- and
-cross-attention (with per-head q/k norms) and their KV caches, and the
-dense MLP.
+cross-attention (with per-head q/k norms) and their KV caches, MLA
+(DeepSeek's multi-head latent attention, with its absorbed decode over the
+compressed cache), and the dense MLP.
 
-The port of ``repro/models/layers.py`` for the attention layer kinds. Layers
-are plain functions over parameter trees (nested dicts of tensors); the
-parameters carry the dtype and the device, activations follow. The
-reference's ``pin_batch`` is a GSPMD sharding constraint and has no
-counterpart on one card, so it is dropped. The ``stub`` probe and MLA wait
-for ROADMAP A20 (``Model`` refuses configurations that need them).
+The port of ``repro/models/layers.py``. Layers are plain functions over
+parameter trees (nested dicts of tensors); the parameters carry the dtype
+and the device, activations follow. The reference's ``pin_batch`` is a
+GSPMD sharding constraint and has no counterpart on one card, so it is
+dropped. The ``stub`` probe (a roofline decomposition for the TPU) waits
+for ROADMAP A20; ``Model`` refuses it.
 """
 from __future__ import annotations
 
@@ -39,7 +40,9 @@ class Ctx(NamedTuple):
 
 
 def _init(gen: torch.Generator, shape, fan_in: int, dtype, device) -> Tensor:
-    x = torch.randn(shape, generator=gen, device=device) / math.sqrt(fan_in)
+    """N(0, 1/fan_in), scaled in place: no second tensor of the leaf's size
+    (an expert leaf of DeepSeek-V3 is 15 GB in float32)."""
+    x = torch.randn(shape, generator=gen, device=device).div_(math.sqrt(fan_in))
     return x.to(dtype)
 
 
@@ -247,6 +250,101 @@ def attn_apply(
             new_cache = {"k": _to_cache_layout(k, s), "v": _to_cache_layout(v, s)}
 
     return y.reshape(b, t, h * hd) @ p["wo"], new_cache
+
+
+# ----------------------------------------------------------------------- MLA
+def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qh = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wq_a": _init(gen, (d, m.q_lora_rank), d, dtype, device),
+        "q_norm": rmsnorm_init(m.q_lora_rank, dtype, device),
+        "wq_b": _init(gen, (m.q_lora_rank, h * qh), m.q_lora_rank, dtype, device),
+        "wkv_a": _init(gen, (d, m.kv_lora_rank + m.rope_head_dim), d, dtype, device),
+        "kv_norm": rmsnorm_init(m.kv_lora_rank, dtype, device),
+        "w_uk": _init(gen, (m.kv_lora_rank, h * m.nope_head_dim), m.kv_lora_rank, dtype, device),
+        "w_uv": _init(gen, (m.kv_lora_rank, h * m.v_head_dim), m.kv_lora_rank, dtype, device),
+        "wo": _init(gen, (h * m.v_head_dim, d), h * m.v_head_dim, dtype, device),
+    }
+
+
+def mla_apply(
+    p: Params, x: Tensor, ctx: Ctx, cfg: ModelConfig, *, cache: Params | None = None
+) -> tuple[Tensor, Params | None]:
+    """DeepSeek MLA. Train / prefill: K and V expanded per head from the
+    latent, then attention with q/k width nope + rope and v width v_head_dim
+    (``_sdpa``, or ``chunked_sdpa``: kernel B4 on the card); decode: the
+    absorbed form over the compressed (c_kv, k_pe) cache, which stores
+    kv_lora_rank + rope_head_dim values a token instead of 2 * H * hd. The
+    RoPE part of the keys is one 64-wide vector a token shared by every
+    head. Returns (y, new_cache)."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    nd, rd, vd = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
+
+    q = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps) @ p["wq_b"]
+    q = q.reshape(b, t, h, nd + rd)
+    q_nope, q_pe = q[..., :nd], q[..., nd:]
+
+    kv_a = x @ p["wkv_a"]  # (B,T, rank+rd)
+    c_kv = rmsnorm(p["kv_norm"], kv_a[..., :m.kv_lora_rank], cfg.norm_eps)
+    k_pe_raw = kv_a[..., m.kv_lora_rank:]  # (B,T,rd), shared across heads
+
+    if ctx.mode == "decode":
+        pos_q = ctx.decode_pos[:, None]
+    elif ctx.positions is not None:
+        pos_q = ctx.positions
+    else:
+        pos_q = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    cos, sin = rope_angles(pos_q, rd, cfg.rope_theta)
+    q_pe = apply_rope(q_pe, cos, sin)
+    k_pe = apply_rope(k_pe_raw[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    scale = 1.0 / math.sqrt(nd + rd)
+    new_cache = None
+
+    if ctx.mode == "decode":
+        assert cache is not None
+        s = cache["ckv"].shape[1]
+        pos = ctx.decode_pos
+        ckv = _write_kv(cache["ckv"], c_kv, pos, ctx.cache_update)
+        kpe = _write_kv(cache["kpe"], k_pe, pos, ctx.cache_update)
+        new_cache = {"ckv": ckv, "kpe": kpe}
+        # absorbed: q_eff[h] = W_uk[h]^T q_nope[h], in latent space
+        w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, nd)
+        q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)  # (B,1,H,rank)
+        logits = (
+            torch.einsum("bqhr,bsr->bhqs", q_eff, ckv)
+            + torch.einsum("bqhd,bsd->bhqs", q_pe, kpe)
+        ).float() * scale
+        j = torch.arange(s, device=x.device)[None, None, None, :]
+        logits = torch.where(j <= pos[:, None, None, None], logits, -1e30)
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        ctx_lat = torch.einsum("bhqs,bsr->bqhr", w, ckv)  # (B,1,H,rank)
+        w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, vd)
+        out = torch.einsum("bqhr,rhv->bqhv", ctx_lat, w_uv)
+    else:
+        # expand K and V per head from the latent
+        k_nope = (c_kv @ p["w_uk"]).reshape(b, t, h, nd)
+        v = (c_kv @ p["w_uv"]).reshape(b, t, h, vd)
+        k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, t, h, rd)], dim=-1)
+        q_full = torch.cat([q_nope, q_pe], dim=-1)
+        if ctx.attn_impl == "chunked":
+            out = chunked_sdpa(
+                q_full, k_full, v, scale, causal=True, window=None,
+                q_blk=ctx.attn_q_blk, k_blk=ctx.attn_k_blk,
+            )
+        else:
+            i = torch.arange(t, device=x.device)[:, None]
+            j = torch.arange(t, device=x.device)[None, :]
+            out = _sdpa(q_full, k_full, v, (j <= i)[None].expand(b, t, t), scale)
+        if ctx.mode == "prefill":
+            s = ctx.cache_len or t
+            new_cache = {"ckv": _to_cache_layout(c_kv, s), "kpe": _to_cache_layout(k_pe, s)}
+
+    return out.reshape(b, t, h * vd) @ p["wo"], new_cache
 
 
 # ----------------------------------------------------------------------- MLP

@@ -2,8 +2,8 @@
 steps.
 
 The port of ``repro/models/lm.py`` for decoder-only models of the
-attention, MoE and RWKV6 kinds, q/k norms and M-RoPE included, and for
-the encoder-decoder. Batch dict keys, as in the reference:
+attention, MoE, MLA and RWKV6 kinds, q/k norms and M-RoPE included, and
+for the encoder-decoder. Batch dict keys, as in the reference:
 
   train / forward / prefill: tokens (B,S) int [, labels, positions,
                              enc_embeds, patch_embeds]
@@ -66,14 +66,14 @@ class Model:
         embeddings, unit norm scales (RWKV6 blocks: ``rwkv_init``'s); an
         encoder-decoder's encoder stack and its final norm after the rest."""
         cfg, dev = self.cfg, self.device
-        embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev) * 0.02
+        embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev).mul_(0.02)
         params: Params = {
             "embed": embed.to(self.dtype),
             "stack": stack_init(gen, cfg, self.dtype, dev),
             "ln_f": rmsnorm_init(cfg.d_model, self.dtype, dev),
         }
         if not cfg.tie_embeddings:
-            head = torch.randn((cfg.d_model, cfg.vocab), generator=gen, device=dev) * 0.02
+            head = torch.randn((cfg.d_model, cfg.vocab), generator=gen, device=dev).mul_(0.02)
             params["lm_head"] = head.to(self.dtype)
         if cfg.encoder_layers:
             params["encoder"] = {
@@ -205,6 +205,10 @@ class Model:
                     "shift_tm": zeros(lead + (batch_size, cfg.d_model)),
                     "shift_cm": zeros(lead + (batch_size, cfg.d_model)),
                 }
+            if kind.startswith("mla"):  # the compressed (c_kv, k_pe) cache
+                m = cfg.mla
+                return {"self": {"ckv": zeros(lead + (batch_size, cache_len, m.kv_lora_rank)),
+                                 "kpe": zeros(lead + (batch_size, cache_len, m.rope_head_dim))}}
             s = cache_len if kind != "local" else min(cache_len, cfg.window)
             kv = lambda n: {"k": zeros(lead + (batch_size, n, cfg.n_kv_heads, cfg.head_dim_)),
                             "v": zeros(lead + (batch_size, n, cfg.n_kv_heads, cfg.head_dim_))}

@@ -2,9 +2,11 @@
 
 The port of ``repro/models/stack.py`` for the attention kinds (``attn``,
 ``dense``, ``local``), ``moe`` (attention + the MoE MLP on its local
-path), the encoder-decoder's ``enc`` (bidirectional self-attention) and
-``xattn`` (causal self-attention, then cross-attention over the encoder
-memory) kinds, and ``rwkv`` (the RWKV6 block, which owns its residuals).
+path), DeepSeek's ``mla`` (MLA + the MoE MLP) and ``mla_dense`` (MLA + a
+dense MLP), the encoder-decoder's ``enc`` (bidirectional self-attention)
+and ``xattn`` (causal self-attention, then cross-attention over the
+encoder memory) kinds, and ``rwkv`` (the RWKV6 block, which owns its
+residuals).
 The parameter tree is the reference's: ``prefix``
 and ``suffix`` are lists of blocks, and ``period`` is a list with one entry
 per position of the repeating pattern, each stacked on a leading
@@ -18,8 +20,8 @@ outputs of its plain matrix products (``aten.mm`` / ``addmm``, the dots
 with no batch dimensions that ``checkpoint_dots_with_no_batch_dims`` keeps)
 and recomputes the rest. The MoE layers' aux losses are summed over
 prefix, period and suffix and returned beside the output, as the
-reference's third value. The other kinds (MLA, RG-LRU) raise
-``NotImplementedError`` until ROADMAP A20 ports them.
+reference's third value. The one kind left, RG-LRU, raises
+``NotImplementedError`` until ROADMAP A20 ports it.
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ from .layers import (
     apply_rope,
     attn_apply,
     attn_init,
+    mla_apply,
+    mla_init,
     mlp_apply,
     mlp_init,
     rmsnorm,
@@ -53,13 +57,18 @@ from .moe import moe_apply, moe_init
 from .rwkv6 import rwkv_apply, rwkv_init
 
 Params = dict[str, Any]
-PORTED_KINDS = ("attn", "dense", "local", "moe", "enc", "xattn", "rwkv")
+PORTED_KINDS = ("attn", "dense", "local", "moe", "mla", "mla_dense", "enc", "xattn", "rwkv")
 REMAT = ("none", "full", "dots")
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _mlp_kind(kind: str) -> str:
+    """The block's MLP: "moe" for ``moe`` and ``mla``, else "dense"."""
+    return "moe" if kind in ("moe", "mla") else "dense"
 
 
 def _check_kind(kind: str) -> None:
@@ -75,15 +84,16 @@ def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype, device)
     d = cfg.d_model
     if kind == "rwkv":
         return {"rwkv": rwkv_init(gen, cfg, dtype, device)}
+    attn = mla_init if kind.startswith("mla") else attn_init
     p = {
         "ln1": rmsnorm_init(d, dtype, device),
         "ln2": rmsnorm_init(d, dtype, device),
-        "attn": attn_init(gen, cfg, dtype, device),
+        "attn": attn(gen, cfg, dtype, device),
     }
     if kind == "xattn":
         p["ln_x"] = rmsnorm_init(d, dtype, device)
         p["xattn"] = attn_init(gen, cfg, dtype, device)
-    if kind == "moe":
+    if _mlp_kind(kind) == "moe":
         p["moe"] = moe_init(gen, cfg, dtype, device)
     else:
         p["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype, device)
@@ -98,9 +108,9 @@ def block_apply(
     cfg: ModelConfig,
     cache: Params | None,
 ) -> tuple[Tensor, Params | None, Tensor]:
-    """Pre-norm residual attention + dense or MoE MLP block (``xattn``
-    adds pre-norm residual cross-attention between the two), or the RWKV6
-    block. Returns (x, new_cache, aux loss), the aux a float 0.0 for a
+    """Pre-norm residual attention (GQA or MLA) + dense or MoE MLP block
+    (``xattn`` adds pre-norm residual cross-attention between the two), or
+    the RWKV6 block. Returns (x, new_cache, aux loss), the aux a float 0.0 for a
     dense MLP."""
     _check_kind(kind)
     if kind == "rwkv":
@@ -111,6 +121,8 @@ def block_apply(
     if kind == "enc":
         # bidirectional; enc blocks only run in full-sequence mode, no cache
         y, new_self = _bidirectional_attn(p["attn"], h, cfg), None
+    elif kind.startswith("mla"):
+        y, new_self = mla_apply(p["attn"], h, ctx, cfg, cache=self_cache)
     else:
         window = cfg.window if kind == "local" else None
         y, new_self = attn_apply(p["attn"], h, ctx, cfg, window=window, cache=self_cache)
@@ -126,7 +138,7 @@ def block_apply(
     elif new_self is not None:
         new_cache = {"self": new_self}
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    if kind == "moe":
+    if _mlp_kind(kind) == "moe":
         y, aux = moe_apply(p["moe"], h, cfg)
     else:
         y, aux = mlp_apply(p["mlp"], h), 0.0  # no launch for a zero
@@ -151,11 +163,14 @@ def _bidirectional_attn(p: Params, h: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def _stack_trees(trees: list):
-    """Stack a list of like-shaped trees on a new leading axis."""
+    """Stack a list of like-shaped trees on a new leading axis. The trees
+    are consumed: each leaf leaves its tree as it is stacked, and a single
+    tree's leaves become views, so no more than one leaf is ever held twice
+    (one period of DeepSeek-V3's expert leaves is 45 GB in float32)."""
     first = trees[0]
     if isinstance(first, dict):
-        return {key: _stack_trees([t[key] for t in trees]) for key in first}
-    return torch.stack(trees)
+        return {key: _stack_trees([t.pop(key) for t in trees]) for key in list(first)}
+    return torch.stack(trees) if len(trees) > 1 else trees[0].unsqueeze(0)
 
 
 def _unstack(tree) -> list:

@@ -1,6 +1,7 @@
 """The five GQA / MoE architectures of head width 128 (Gemma3, the Qwen3
-MoE, Qwen2-VL, Phi-4-mini, StarCoder2) against the reference, on the CPU at
-their SMOKE sizes.
+MoE, Qwen2-VL, Phi-4-mini, StarCoder2) and DeepSeek-V3 (MLA, a shared
+expert beside the routed ones, a leading dense layer) against the
+reference, on the CPU at their SMOKE sizes.
 
 Both packages build each SMOKE config through ``build_model``; the
 reference's weights are carried across with ``params_from_numpy``. The
@@ -36,7 +37,8 @@ import repro_torch.launch.steps as PS
 from repro_torch.launch.serve import serve
 from repro_torch.models import layers, params_from_numpy
 
-ARCHS = ("gemma3-27b", "qwen3-moe-30b-a3b", "qwen2-vl-2b", "phi4-mini-3.8b", "starcoder2-15b")
+ARCHS = ("gemma3-27b", "qwen3-moe-30b-a3b", "qwen2-vl-2b", "phi4-mini-3.8b", "starcoder2-15b",
+         "deepseek-v3-671b")
 ATOL = 1e-4
 B = 2
 

@@ -1,7 +1,7 @@
 """The training loss of the five GQA / MoE architectures of head width 128
-against the reference, and the options the port used to refuse, on the
-CPU at SMOKE sizes (the helpers and the weights of ``test_torch_archs.py``;
-the reference under ``jax.jit``). Tolerances:
+and DeepSeek-V3 against the reference, and the options the port used to
+refuse, on the CPU at SMOKE sizes (the helpers and the weights of
+``test_torch_archs.py``; the reference under ``jax.jit``). Tolerances:
 
 * ``Model.loss`` (with the MoE aux loss) at rtol 2e-4 and its gradients
   against ``jax.grad(model.loss)`` at atol 1e-4 (as ``test_torch_train.py``),

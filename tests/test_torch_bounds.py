@@ -171,6 +171,29 @@ def test_flash_bound_at_seamless_decoder_prefill():
     assert got["bound_bytes_ms"] == pytest.approx(0.01972, abs=1e-5)
 
 
+def test_flash_bound_at_mla_prefill_counts_both_widths():
+    """q/k width 192 and v width 128 at DeepSeek-V3's MLA prefill in phase
+    15: 2 x (192 + 128) FLOP a visible pair, and q, k, v and the output
+    each at its own width."""
+    cs = _chip_smoke()
+    b, t, h, kh, hd, vd = cs.MLA_FLASH_SHAPE
+    q = torch.empty((b, t, h, hd), device="meta")
+    k = torch.empty((b, t, kh, hd), device="meta")
+    v = torch.empty((b, t, kh, vd), device="meta")
+    got = cs.flash_bound(q, k, v)
+    pairs = b * h * t * (t + 1) // 2
+    assert pairs == 520_482_816
+    assert got["bound_flop"] == 2 * (hd + vd) * pairs == 333_109_002_240
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(2.019, abs=5e-4)
+    assert got["bound_tf32_ms"] == pytest.approx(0.673, abs=5e-4)
+    assert got["bound_gb"] == pytest.approx(2 * 4 * b * t * h * (hd + vd) / 1e9) == pytest.approx(
+        1.321, abs=5e-4)
+    assert got["bound_bytes_ms"] == pytest.approx(0.3944, abs=1e-4)
+    # v of k's shape is the default, as for every other instance
+    assert cs.flash_bound(q, k) == cs.flash_bound(q, k, k)
+
+
 @pytest.mark.parametrize("shape", [(1, 6, 6, 349_525_500), (500, 6, 6, 699_051)])
 def test_gf_bound_at_the_codec_path_shapes(shape):
     """B2's (12, 6) encode and B3's (12, 6) decode move the same bytes:

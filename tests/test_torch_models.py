@@ -33,7 +33,8 @@ def _close(port, ref, atol):
 
 
 PORTED = ("smollm-135m", "starcoder2-15b", "phi4-mini-3.8b", "gemma3-27b",
-          "qwen3-moe-30b-a3b", "qwen2-vl-2b", "seamless-m4t-medium", "rwkv6-1.6b")
+          "qwen3-moe-30b-a3b", "deepseek-v3-671b", "qwen2-vl-2b", "seamless-m4t-medium",
+          "rwkv6-1.6b")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -191,7 +192,7 @@ def test_init_draws_the_reference_distributions():
 
 @pytest.mark.parametrize(
     "change",
-    [dict(period=(kind,)) for kind in ("mla", "rglru")],
+    [dict(period=(kind,)) for kind in ("rglru",)],
 )
 def test_unported_layer_kinds_and_options_raise(change):
     cfg = dataclasses.replace(SMOKE, **change)

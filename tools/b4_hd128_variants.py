@@ -1,139 +1,166 @@
 #!/usr/bin/env python3
-"""Kernel B4's hd = 128 float32 instance against two variants of its design.
+"""Kernel B4's widest float32 instances against variants of their design.
 
-    python3 tools/b4_hd128_variants.py
+    python3 tools/b4_hd128_variants.py [--against OTHER.cu]
 
-At Phi-4-mini's prefill (4, 2016, 24, 8, 128), causal: the source as
-committed (32-key tiles, two blocks an SM; a whole tile of P V in
-registers), a copy with 64-key tiles (one block an SM), and a copy that
-folds each 8-column group of P V into O as soon as it is summed over the
-tile's keys (``FOLD``: 4 registers instead of 64; the same sums in the
-same order). The copies are written into ``build/repro_torch/`` and built
-like the kernel (``ptxas -v`` prints their registers and spills). Each is
-held to the plain twin, then all are timed with CUDA events in turns
-(committed, 64-key, fold; four rounds of 10 launches). Needs a CUDA card.
+First the registers, stack and spills ``ptxas -v`` reports for every
+instance of the committed source, and with ``--against`` whether each
+instance the other source also has (an earlier revision of
+``flash_attention.cu``) gets the same report.
+
+Two shapes, causal, float32. At Phi-4-mini's prefill (4, 2016, 24, 8, 128):
+the source as committed (32-key tiles, two blocks an SM; a whole tile of
+P V in registers), a copy with 64-key tiles (one block an SM), and a copy
+that folds each 8-column group of P V into O as soon as it is summed over
+the tile's keys (``fold``: 4 registers instead of 64; the same sums in the
+same order). At MLA's prefill in DeepSeek-V3, (2, 2016, 128, 128) with q/k
+width 192 and v width 128: the source as committed (the fold, 16-key
+tiles, two blocks an SM), a copy with 32-key tiles (one block an SM), a
+copy without the fold (a whole tile of P V in registers), and a copy that
+parks Q's TF32 big half in shared memory beside its small half, without
+the fold (``qbig``: 96 registers fewer; 140 KB of shared memory, one block
+an SM). The copies are written into ``build/repro_torch/`` and built like
+the kernel (``ptxas -v`` prints their registers and spills). Each is held
+to the plain twin, then the variants of a shape are timed with CUDA events
+in turns (four rounds of 10 launches). Needs a CUDA card.
 """
+import argparse
 import ctypes
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels._build import BUILD_DIR, build_library  # noqa: E402
+from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, build_library  # noqa: E402
 
+
+def ptxas_report(source: Path) -> dict:
+    """{(type, hd, vd): (registers, stack, spill stores, spill loads)} as
+    ``ptxas -v`` reports each instance of ``source``."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    with tempfile.TemporaryDirectory() as tmp:
+        run = subprocess.run([nvcc, *NVCC_FLAGS, "-o", f"{tmp}/lib.so", str(source)],
+                             capture_output=True, text=True, check=True)
+    report, inst, frame = {}, None, None
+    for line in run.stderr.splitlines():
+        m = re.search(r"flash_attention_kernelI(13__nv_bfloat16|f)Li(\d+)E(?:Li(\d+)E)?E", line)
+        if "Compiling entry function" in line and m:
+            dtype = "float32" if m.group(1) == "f" else "bfloat16"
+            inst = (dtype, int(m.group(2)), int(m.group(3) or m.group(2)))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill", line)
+        if m:
+            frame = tuple(map(int, m.groups()))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and inst:
+            report[inst] = (int(m.group(1)),) + frame
+            inst = None
+    return report
+
+
+ap = argparse.ArgumentParser()
+ap.add_argument("--against", type=Path, help="another revision of flash_attention.cu")
+args = ap.parse_args()
 print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True).stdout.strip(), flush=True)
-# the fold, for hd >= 128: P converted once a tile, then each 8-column group
-# of P V summed over the tile's keys and folded into O at once
-FOLD = r"""
-      if constexpr (HD >= 128) {
-        if constexpr (F32) {
-          uint32_t pb[NT][4], ps[NT][4];
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            split(s[nt][0], pb[nt][0], ps[nt][0]);
-            split(s[nt][2], pb[nt][1], ps[nt][1]);
-            split(s[nt][1], pb[nt][2], ps[nt][2]);
-            split(s[nt][3], pb[nt][3], ps[nt][3]);
-          }
-#pragma unroll
-          for (int d = 0; d < DN; ++d) {
-            float pv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              const T* vr = vs + (8 * nt + 2 * tq4) * LD + gq + 8 * d;
-              uint32_t bb0, bs0, bb1, bs1;
-              split(vr[0], bb0, bs0);
-              split(vr[LD], bb1, bs1);
-              mma_3xtf32(pv, pb[nt], ps[nt], bb0, bb1, bs0, bs1);
-            }
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[d][e] = fmaf(o[d][e], alpha[e >> 1], pv[e]);
-          }
-        } else {
-          uint32_t pa[NT / 2][4];
-#pragma unroll
-          for (int j = 0; j < NT / 2; ++j) {
-            pa[j][0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-            pa[j][1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-            pa[j][2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-            pa[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-          }
-#pragma unroll
-          for (int d = 0; d < DN; ++d) {
-            float pv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-            for (int j = 0; j < NT / 2; ++j) {
-              const T* x = vs + (16 * j + 2 * tq4) * LD + gq + 8 * d;
-              mma_bf16(pv, pa[j], pack_bf16(x[0], x[LD]), pack_bf16(x[8 * LD], x[9 * LD]));
-            }
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[d][e] = fmaf(o[d][e], alpha[e >> 1], pv[e]);
-          }
-        }
-      } else {
-"""
+ours = ptxas_report(fa.SOURCE)
+theirs = ptxas_report(args.against) if args.against else {}
+for inst, rep in sorted(ours.items()):
+    note = "" if inst not in theirs else (
+        "; the same in the other source" if theirs[inst] == rep
+        else f"; DIFFERS from the other source's {theirs[inst]}")
+    print(f"{inst}: {rep[0]} registers, {rep[1]} bytes stack, {rep[2]} / {rep[3]} bytes "
+          f"spill stores / loads{note}", flush=True)
 
 
-def variant(src: str, old: str, new: str) -> str:
-    if old not in src:
-        raise RuntimeError(f"not in the source: {old!r}")
-    return src.replace(old, new, 1)
+def variant(src: str, *edits: tuple[str, str]) -> str:
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"not once in the source: {old!r}")
+        src = src.replace(old, new)
+    return src
 
 
 src = fa.SOURCE.read_text()
-kt64 = variant(src, "return std::is_same<T, float>::value && HD >= 128 ? 32 : 64;",
-               "return 64;")
-# the fold for hd >= 128, the whole-tile P V (through its fold into O) else
-pv_start = "      float pv[DN][4];\n"
-tile_end = "    }\n    __syncthreads();  // every warp is done"
-fold = variant(variant(src, pv_start, FOLD + pv_start), tile_end, "    }\n" + tile_end)
+KEY_TILE = ("  return smem_bytes_at<T, HD, VD>(64) <= TWO_BLOCKS_SMEM   ? 64",
+            "  return true ? 64")
+FOLD_AT = "  return (std::is_same<T, float>::value ? HD / 2 : (HD + 15) / 16 * 4) + VD > 192;"
+QBIG = [  # Q big beside Q small in shared memory, read back each k-step
+    ("(std::is_same<T, float>::value ? WARPS * (HD / 8) * 32 * 16 : 0);  // Q small",
+     "(std::is_same<T, float>::value ? 2 * WARPS * (HD / 8) * 32 * 16 : 0);  // Q small"),
+    ("    if constexpr (F32) qsmall[kk * 32] = make_uint4(qs[0], qs[1], qs[2], qs[3]);",
+     "    if constexpr (F32) qsmall[kk * 32] = make_uint4(qs[0], qs[1], qs[2], qs[3]);\n"
+     "    if constexpr (F32) qsmall[(WARPS * KS + kk) * 32] = "
+     "make_uint4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);"),
+    ("          const uint4 x = qsmall[kk * 32];",
+     "          const uint4 x = qsmall[kk * 32];\n"
+     "          const uint4 y = qsmall[(WARPS * KS + kk) * 32];\n"
+     "          qb[0] = y.x, qb[1] = y.y, qb[2] = y.z, qb[3] = y.w;"),
+    ("        uint32_t qs[4];\n        if constexpr (F32) {",
+     "        uint32_t qs[4], qb[4];\n        if constexpr (F32) {"),
+    ("            mma_3xtf32(s[nt], qa[kk], qs, bb0, bb1, bs0, bs1);",
+     "            mma_3xtf32(s[nt], qb, qs, bb0, bb1, bs0, bs1);"),
+]
+VARIANTS = {
+    "hd128": {"kt64": [KEY_TILE], "fold": [(FOLD_AT, FOLD_AT.replace("> 192", "> 191"))]},
+    "mla": {"kt32": [("                                                           : 16;",
+                      "                                                           : 32;")],
+            "nofold": [(FOLD_AT, FOLD_AT.replace("> 192", "> 1000"))],
+            "qbig": QBIG + [(FOLD_AT, FOLD_AT.replace("> 192", "> 1000"))]},
+}
+SHAPES = {"hd128": (4, 2016, 24, 8, 128, 128), "mla": (2, 2016, 128, 128, 192, 128)}
+
 BUILD_DIR.mkdir(parents=True, exist_ok=True)
-libs = {"committed": fa.load_library()}
-for name, text in (("kt64", kt64), ("fold", fold)):
-    path = BUILD_DIR / f"fa_variant_{name}.cu"
-    path.write_text(text)
-    print(f"--- building {name}", flush=True)
-    lib = build_library(path)
-    lib.flash_attention_launch.argtypes = libs["committed"].flash_attention_launch.argtypes
-    lib.flash_attention_launch.restype = ctypes.c_int
-    libs[name] = lib
-
+committed = fa.load_library()
 dev = torch.device("cuda")
-gen = torch.Generator(device=dev).manual_seed(0)
-b, t, h, kh, hd = 4, 2016, 24, 8, 128
-q = torch.randn(b, t, h, hd, generator=gen, device=dev)
-k = torch.randn(b, t, kh, hd, generator=gen, device=dev)
-v = torch.randn(b, t, kh, hd, generator=gen, device=dev)
-scale = hd ** -0.5
-want = fa.flash_attention_plain(q, k, v, scale=scale, q_blk=1024, k_blk=2048)
-out = torch.empty_like(q)
+for shape_name, (b, t, h, kh, hd, vd) in SHAPES.items():
+    libs = {"committed": committed}
+    for name, edits in VARIANTS[shape_name].items():
+        path = BUILD_DIR / f"fa_variant_{shape_name}_{name}.cu"
+        path.write_text(variant(src, *edits))
+        print(f"--- building {shape_name} {name}", flush=True)
+        lib = build_library(path)
+        lib.flash_attention_launch.argtypes = committed.flash_attention_launch.argtypes
+        lib.flash_attention_launch.restype = ctypes.c_int
+        libs[name] = lib
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(b, t, h, hd, generator=gen, device=dev)
+    k = torch.randn(b, t, kh, hd, generator=gen, device=dev)
+    v = torch.randn(b, t, kh, vd, generator=gen, device=dev)
+    scale = hd ** -0.5
+    want = fa.flash_attention_plain(q, k, v, scale=scale, q_blk=1024, k_blk=2048)
+    out = torch.empty((b, t, h, vd), device=dev)
 
-def launch(lib):
-    err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     b, t, t, t, h, kh, hd, 0, scale, 1, 0, 0,
-                                     torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"launch failed: cudaError_t {err}")
+    def launch(lib):
+        err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         out.data_ptr(), b, t, t, t, h, kh, hd, vd, 0, scale,
+                                         1, 0, 0, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"launch failed: cudaError_t {err}")
 
-times = {name: [] for name in libs}
-for name, lib in libs.items():
-    launch(lib)
-    torch.cuda.synchronize()
-    err = float((out - want).abs().max())
-    print(f"{name}: max_abs_err {err:.3g}", flush=True)
-    if not err <= 2e-5:
-        raise RuntimeError(f"{name} differs from the plain twin by {err}")
-for rnd in range(4):
+    times = {name: [] for name in libs}
     for name, lib in libs.items():
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(10):
-            launch(lib)
-        e.record()
+        launch(lib)
         torch.cuda.synchronize()
-        times[name].append(s.elapsed_time(e) / 10)
-for name, ts in times.items():
-    print(f"{name}: " + ", ".join(f"{x:.4f}" for x in ts) + " ms")
+        err = float((out - want).abs().max())
+        print(f"{shape_name} {name}: max_abs_err {err:.3g}", flush=True)
+        if not err <= 2e-5:
+            raise RuntimeError(f"{name} differs from the plain twin by {err}")
+    del want
+    for rnd in range(4):
+        for name, lib in libs.items():
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(10):
+                launch(lib)
+            e.record()
+            torch.cuda.synchronize()
+            times[name].append(s.elapsed_time(e) / 10)
+    for name, ts in times.items():
+        print(f"{shape_name} {(b, t, h, kh, hd, vd)} {name}: "
+              + ", ".join(f"{x:.4f}" for x in ts) + " ms", flush=True)
+    del q, k, v, out
