@@ -437,7 +437,7 @@ from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import build_model, loss_and_grads  # noqa: E402
-from repro_torch.models import lm, moe, rwkv6  # noqa: E402
+from repro_torch.models import lm, moe, rglru, rwkv6  # noqa: E402
 from repro_torch.models.stack import _mlp_kind  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -647,6 +647,19 @@ RWKV_SERVE = dict(SERVE, n_batches=2)
 # 192 (nope 128 + rope 64) and v width 128.
 MLA_ARCH = "deepseek-v3-671b"
 MLA_FLASH_SHAPE = (2, 2016, 128, 128, 192, 128)  # MLA's prefill: (B, T, H, KH, hd, vd)
+# phase 16: RecurrentGemma-2B at full width and depth (its registered config:
+# 18 RG-LRU and 8 local-attention layers, MQA at head width 256, window 2048),
+# float32, random weights from a seed, O3. 16a serves it through serve() with
+# RG_SERVE's load (2 of phase 6's 8 batches, as 14b); 16b runs 13b's teacher
+# forcing on 2 x 4096 tokens, a prefill of 4064 and 32 decode steps: past the
+# window, so B4's window masks keys in the forward and the prefill, and the
+# local caches roll in decode. The RG-LRU scan is timed inside the prefill
+# (a host timer around each layer's scan) and its kernels counted on one scan
+# at the prefill's shape. B4 is timed at the forward's shape.
+RG_ARCH = "recurrentgemma-2b"
+RG_SERVE = dict(SERVE, n_batches=2)
+RG_PREFILL = 4064
+RG_FLASH_SHAPE = (2, 4096, 10, 1, 256, 2048)  # the forward's: (B, T, H, KH, hd, window)
 # 13b, 14a and 15 hold each B4 call to the plain twin as it is made, the twin
 # over up to HOLD_SLICES slices of the KV heads (a head's attention reads only
 # its own rows): beside DeepSeek-V3's 60.4 GB of parameters, its 8 calls kept
@@ -920,17 +933,21 @@ def gf_work_line(record: dict, limits: dict) -> str:
             f"the INT32 rate {int_ms:.4f} ms")
 
 
-def flash_bound(q, k, v=None) -> dict:
+def flash_bound(q, k, v=None, window: int | None = None) -> dict:
     """The least time for one causal float32 attention call on B4's design:
     q, k, v read once and the output written once, or its operations,
     2 x (hd + vd) per (query row, visible key) pair (q . k and p v; the
-    pairs counted from the causal mask), done as TF32_PASSES tensor-core
-    passes at the TF32 rate. v defaults to k's shape. Kept beside it: one
-    TF32 pass, the same FLOP in float32 outside the tensor cores, and the
-    bytes."""
+    pairs counted from the causal mask and, with ``window``, the sliding
+    window: row i sees keys (i - window, i]), done as TF32_PASSES
+    tensor-core passes at the TF32 rate. v defaults to k's shape. Kept
+    beside it: one TF32 pass, the same FLOP in float32 outside the tensor
+    cores, and the bytes."""
     b, tq, h, hd = q.shape
     vd = k.shape[3] if v is None else v.shape[3]
-    pairs = int(np.minimum(np.arange(1, tq + 1), k.shape[1]).sum())
+    rows = np.arange(tq)
+    hi = np.minimum(rows + 1, k.shape[1])
+    lo = np.zeros(tq, np.int64) if window is None else np.maximum(rows - window + 1, 0)
+    pairs = int(np.maximum(hi - lo, 0).sum())
     n_bytes = (q.numel() + b * tq * h * vd + k.numel() + k.numel() // hd * vd) * q.element_size()
     n_ops = 2 * (hd + vd) * pairs * b * h
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -943,6 +960,7 @@ def flash_bound(q, k, v=None) -> dict:
         bound_bytes_ms=bytes_ms,
         bound_tf32_ms=n_ops / TF32_OPS_PER_S * 1e3,
         bound_fp32_ms=n_ops / FP32_OPS_PER_S * 1e3,
+        bound_pairs=pairs * b * h,
     )
 
 
@@ -1267,6 +1285,25 @@ def phase_flash_vs_plain(dev) -> float:
             (f"qk192 v128 G=2 {name} T=300 window 100",
              qkv_on(gen, dev, 2, 300, 8, 4, hd, dtype=dtype, vd=vd),
              dict(scale=hd**-0.5, window=100, q_blk=1024, k_blk=2048), atol)]
+    # head width 256, RecurrentGemma's local layers (MQA, G = 10 at KH = 1):
+    # its forward's shape with the 2048 window, a ragged T with a window,
+    # unequal lengths, and G = 2, in float32 and bfloat16
+    b, t, h, kh, hd, w = RG_FLASH_SHAPE
+    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        name = str(dtype)[6:]
+        cases += [
+            (f"RecurrentGemma forward {RG_FLASH_SHAPE[:5]} window {w} {name}",
+             qkv_on(gen, dev, b, t, h, kh, hd, dtype=dtype),
+             dict(scale=hd**-0.5, window=w, q_blk=1024, k_blk=2048), atol),
+            (f"hd=256 G=10 {name} T=1001 window 300",
+             qkv_on(gen, dev, 2, 1001, 10, 1, hd, dtype=dtype),
+             dict(scale=hd**-0.5, window=300, q_blk=1024, k_blk=2048), atol),
+            (f"hd=256 G=10 {name} Tq=40 Tk=72 window 24",
+             qkv_on(gen, dev, 2, 40, 10, 1, hd, tk=72, dtype=dtype),
+             dict(scale=hd**-0.5, window=24, q_blk=16, k_blk=16), atol),
+            (f"hd=256 G=2 {name} Tq=130 Tk=97",
+             qkv_on(gen, dev, 1, 130, 4, 2, hd, tk=97, dtype=dtype),
+             dict(scale=hd**-0.5, q_blk=1024, k_blk=2048), atol)]
     worst = 0.0
     for label, (q, k, v), kw, atol in cases:
         before = fa.flash_attention_cuda.launches
@@ -1282,11 +1319,11 @@ def phase_flash_vs_plain(dev) -> float:
         if q.dtype == torch.float32:
             worst = max(worst, err)
         print(f"[2c] B4 {label}: kernel == plain twin, max_abs_err {err:.3g} (atol {atol})")
-        if (label.startswith(("SmolLM", "Phi-4", "SeamlessM4T", "DeepSeek"))
-                and q.dtype == torch.float32):
-            fb = flash_bound(q, k, v)
-            print(f"[2c] B4 {tuple(q.shape)} x {tuple(k.shape)} bound {fb['bound_ms']:.4f} ms "
-                  f"(3xTF32, "
+        if (label.startswith(("SmolLM", "Phi-4", "SeamlessM4T", "DeepSeek", "RecurrentGemma"))
+                or "window" in label) and q.dtype == torch.float32:
+            fb = flash_bound(q, k, v, window=kw.get("window"))
+            print(f"[2c] B4 {tuple(q.shape)} x {tuple(k.shape)} window {kw.get('window')} bound "
+                  f"{fb['bound_ms']:.4f} ms (3xTF32, {fb['bound_pairs']:.4g} visible pairs, "
                   f"{fb['bound_flop']:.4g} FLOP x {TF32_PASSES}); one TF32 pass "
                   f"{fb['bound_tf32_ms']:.4f} ms, float32 off the tensor cores "
                   f"{fb['bound_fp32_ms']:.4f} ms, bytes {fb['bound_bytes_ms']:.4f} ms")
@@ -1809,24 +1846,33 @@ def time_flash(tag: str, args, kwargs, got, record: dict, limits: dict) -> dict:
     """B4 on a main path's own inputs (one call's), beside its plain twin's
     time (in ``record``), ``scaled_dot_product_attention`` and its bound."""
     q, k, v = args
-    record.update(flash_bound(q, k, v))
+    window = kwargs.get("window")
+    record.update(flash_bound(q, k, v, window=window))
     fa.flash_attention(q, k, v, **kwargs)  # warm
     record["ms"], _ = cuda_ms(lambda: fa.flash_attention(q, k, v, **kwargs), reps=5)
     g = q.shape[2] // k.shape[2]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(g, dim=2),
                                                 v.repeat_interleave(g, dim=2)))
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=kwargs["scale"])
+    if window is None:
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=kwargs["scale"])
+    else:  # a boolean mask of the causal window: row i sees keys (i - window, i]
+        iq = torch.arange(q.shape[1], device=q.device)[:, None]
+        ik = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = (ik <= iq) & (ik > iq - window)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=kwargs["scale"])
     sdpa()  # warm
     record["library_ms"], lib_out = cuda_ms(sdpa, reps=5)
     lib_err = float((lib_out.transpose(1, 2) - got).abs().max())
     del qt, kt, vt, lib_out
-    print(f"[{tag}] B4 {tuple(q.shape)} x {tuple(k.shape)} x {tuple(v.shape)} on the path's "
-          f"inputs: kernel "
+    print(f"[{tag}] B4 {tuple(q.shape)} x {tuple(k.shape)} x {tuple(v.shape)}"
+          + ("" if window is None else f" window {window}") + " on the path's inputs: kernel "
           f"{record['ms']:.4f} ms, plain twin {record['plain_ms']:.3f} ms, "
           f"scaled_dot_product_attention {record['library_ms']:.4f} ms "
           f"(|diff| {lib_err:.3g}), bound {record['bound_ms']:.4f} ms "
-          f"({TF32_PASSES} TF32 passes of {record['bound_flop']:.4g} FLOP, {record['bound_by']}; "
+          f"({TF32_PASSES} TF32 passes of {record['bound_flop']:.4g} FLOP over "
+          f"{record['bound_pairs']:.4g} visible pairs, {record['bound_by']}; "
           f"{100 * record['bound_ms'] / record['ms']:.1f} % of it); one TF32 pass "
           f"{record['bound_tf32_ms']:.4f} ms, float32 off the tensor cores "
           f"{record['bound_fp32_ms']:.4f} ms, bytes {record['bound_bytes_ms']:.4f} ms "
@@ -3574,12 +3620,13 @@ def plain_errors(args, kwargs, out, slices: int = 1) -> list:
 
 
 @contextlib.contextmanager
-def held_flash(atol: float = 2e-5, slices: int = 1):
+def held_flash(atol: float = 2e-5, slices: int = 1, keep: str = "last"):
     """Hold every B4 call a main path makes against the plain twin as it is
     made (``plain_errors`` over ``slices`` slices of the heads), and keep
     only its error: at Phi-4-mini's width the 288 calls of serving hold 76
     GB of inputs and outputs. The record keeps the count, the worst error,
-    the twin's time on the last call and the last call."""
+    the twin's time on the last call and, under "last", the last call
+    (``keep="first"``: the first)."""
     fn = fa.flash_attention
     record = dict(calls=0, max_abs_err=0.0, plain_ms=0.0, last=None)
 
@@ -3592,7 +3639,8 @@ def held_flash(atol: float = 2e-5, slices: int = 1):
             raise AssertionError(f"B4 {tuple(args[0].shape)} differs from plain twin by {errs}")
         record["calls"] += 1
         record["max_abs_err"] = max(record["max_abs_err"], err)
-        record["last"] = (args, kwargs, out)
+        if keep == "last" or record["last"] is None:
+            record["last"] = (args, kwargs, out)
         return out
 
     fa.flash_attention = holder
@@ -3690,15 +3738,16 @@ def phase_phi4_serve(dev, limits: dict) -> tuple[int, dict]:
     return sum(prefill_launches), record
 
 
-def hold_to_forward(tag: str, name: str, outs: list, full, differ=frozenset()) -> float:
+def hold_to_forward(tag: str, name: str, outs: list, full, differ=frozenset(),
+                    prefill: int = GQA_PREFILL) -> float:
     """The prefill's last-position logits and each decode step's (``outs``,
-    in order from position ``GQA_PREFILL - 1``) against the forward's logits
+    in order from position ``prefill - 1``) against the forward's logits
     at the same position, within ``tests/test_models.py``'s rtol / atol;
     the (row, position) pairs in ``differ`` are left out. Returns the
     largest |difference|."""
     worst, worst_excess = 0.0, 0.0
     for j, out in enumerate(outs):
-        position = GQA_PREFILL - 1 + j
+        position = prefill - 1 + j
         rows = [r for r in range(out.shape[0]) if (r, position) not in differ]
         got, want = out[rows], full[rows, position]
         if not bool(torch.isfinite(got).all()):
@@ -3770,8 +3819,8 @@ def compare_routes(n_layers: int, fwd, pre, dec) -> set:
 def teacher_forced(tag: str, model, params, batch: dict, pre: dict, dev, stage=None,
                    record: bool = True) -> dict:
     """Under ``no_grad``, every B4 call recorded: the forward of ``batch``'s
-    whole sequence, a prefill of ``pre`` (its first GQA_PREFILL tokens)
-    with room for the whole sequence, and GQA_DECODE decode steps fed the
+    whole sequence, a prefill of ``pre`` (its first tokens, GQA_PREFILL in
+    13b) with room for the whole sequence, and decode steps fed the
     sequence's next tokens. ``stage(name, caches)`` runs before "forward",
     "prefill" and "decode" (``caches`` the prefill's there, else None).
     Returns the walls, B4's launches in the forward and in the prefill, the
@@ -3796,7 +3845,7 @@ def teacher_forced(tag: str, model, params, batch: dict, pre: dict, dev, stage=N
 
         def decode():
             nonlocal caches
-            for t in range(GQA_PREFILL, s):
+            for t in range(pre["tokens"].shape[1], s):
                 step = {"token": tokens[:, t],
                         "pos": torch.full((GQA_BATCH,), t, dtype=torch.int64, device=dev)}
                 out, caches = model.decode_step(params, caches, step)
@@ -3807,16 +3856,20 @@ def teacher_forced(tag: str, model, params, batch: dict, pre: dict, dev, stage=N
                 pre_launches=pre_launches, full=full, outs=outs, caches=caches, calls=calls)
 
 
-def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) -> dict:
+def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None,
+                  prefill: int = GQA_PREFILL, stage_hook=None, time_call: str = "last") -> dict:
     """13b for one model, cut in depth to ``GQA_DEPTH`` (14a: SeamlessM4T
     at full depth, its encoder timed alone and fed ``enc_embeds``; 15:
-    DeepSeek-V3): ``teacher_forced`` on 2 x 2048 tokens at O3, the
+    DeepSeek-V3; 16b: RecurrentGemma, a prefill of RG_PREFILL):
+    ``teacher_forced`` on 2 x (``prefill`` + 32) tokens at O3, the
     prefill's and each step's logits held to the forward's, every B4 call
     held to its plain twin as it is made (``held_flash`` over HOLD_SLICES
     slices of the heads), an encoder-decoder's cross caches after decode
     bitwise the prefill's; the forward and the prefill timed again without
-    the holds; with ``limits``, B4 also timed on the path's last call
-    (``record``)."""
+    the holds; with ``limits``, B4 also timed on the path's ``time_call``
+    call, "last" or "first" (``record``). ``stage_hook(name)`` runs before
+    "forward", "prefill" and "decode" and, with "after", once they are
+    done."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3826,7 +3879,7 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
     params = model.init(torch.Generator(device=dev).manual_seed(GQA_SEED))
     n_params = sum(x.numel() for x in tree_leaves(params))
     gen = torch.Generator(device=dev).manual_seed(GQA_SEED + 1)
-    s = GQA_PREFILL + GQA_DECODE
+    s = prefill + GQA_DECODE
     tokens = torch.randint(0, cfg.vocab, (GQA_BATCH, s), generator=gen, device=dev)
     batch = {"tokens": tokens}
     if cfg.mrope_sections is not None:
@@ -3836,7 +3889,7 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
     if cfg.encoder_layers:
         batch["enc_embeds"] = torch.randn((GQA_BATCH, cfg.encoder_seq, cfg.d_model),
                                           generator=gen, device=dev) * ENCDEC_ENC_SCALE
-    pre = {k: (v[..., :GQA_PREFILL] if k in ("tokens", "positions") else v)
+    pre = {k: (v[..., :prefill] if k in ("tokens", "positions") else v)
            for k, v in batch.items()}
     cut = f"{cfg.n_layers} of {full_cfg.n_layers} layers" + (
         "" if cfg.n_layers < full_cfg.n_layers else " (full depth)")
@@ -3864,12 +3917,18 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
         marks[name] = len(routes)
         if name == "decode" and cfg.encoder_layers:
             cross.update(caches["period"][0]["cross"])
+        if stage_hook is not None:
+            stage_hook(name)
 
     syncs0 = moe._expert_compute.host_syncs
-    with recorded_routes() as routes, held_flash(slices=HOLD_SLICES) as held:
-        run = teacher_forced(tag, model, params, batch, pre, dev, stage, record=False)
+    try:
+        with recorded_routes() as routes, held_flash(slices=HOLD_SLICES, keep=time_call) as held:
+            run = teacher_forced(tag, model, params, batch, pre, dev, stage, record=False)
+    finally:
+        if stage_hook is not None:
+            stage_hook("after")
     syncs = moe._expert_compute.host_syncs - syncs0
-    attn_layers = cfg.n_layers
+    attn_layers = sum(kind not in ("rglru", "rwkv") for kind in cfg.layer_kinds)  # B4's
     if run["fwd_launches"] != attn_layers or run["pre_launches"] != attn_layers:
         raise AssertionError(f"{tag} {arch}: B4 launches forward {run['fwd_launches']}, prefill "
                              f"{run['pre_launches']}, expected {attn_layers}")
@@ -3916,7 +3975,7 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
 
     # the prefill's logits (position 2015) and each step's against the forward
     result.update(max_abs_err_logits=hold_to_forward(tag, arch, run.pop("outs"),
-                                                     run.pop("full"), differ))
+                                                     run.pop("full"), differ, prefill))
     with torch.no_grad():  # the forward and the prefill again, without the holds
         fwd_s, _ = best_wall(lambda: model.forward_logits(params, batch), reps=1)
         prefill_s, _ = best_wall(lambda: model.prefill(params, pre, cache_len=s), reps=1)
@@ -3952,7 +4011,7 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
     result.update(max_abs_err=flash_err)
     print(f"[{tag}] {arch}: {held['calls']} B4 calls (forward and prefill, held as made, the "
           f"twin over up to {HOLD_SLICES} slices of the heads; {tuple(args[0].shape)} x "
-          f"{tuple(args[1].shape)} x {tuple(args[2].shape)} the last) == plain twin, "
+          f"{tuple(args[1].shape)} x {tuple(args[2].shape)} the {time_call}) == plain twin, "
           f"max_abs_err {flash_err:.3g}")
     if limits is not None:
         result.update(record=time_flash(tag, args, kwargs, got,
@@ -3964,7 +4023,7 @@ def gqa_model_run(arch: str, dev, tag: str = "13b", limits: dict | None = None) 
           + (f"encoder {encoder_s * 1e3:.3f} ms ({GQA_BATCH} x {cfg.encoder_seq} frames), "
              if cfg.encoder_layers else "")
           + f"forward {fwd_s * 1e3:.3f} ms ({GQA_BATCH} x {s} tokens){included}, prefill "
-          f"{prefill_s * 1e3:.3f} ms ({GQA_BATCH} x {GQA_PREFILL}){included} (both timed "
+          f"{prefill_s * 1e3:.3f} ms ({GQA_BATCH} x {prefill}){included} (both timed "
           f"without the holds), decode "
           f"{decode_s / GQA_DECODE * 1e3:.3f} ms/token at batch {GQA_BATCH}; peak "
           f"{peak:.2f} GiB; wall {time.perf_counter() - t0:.3f} s")
@@ -4153,6 +4212,116 @@ def phase_mla(dev, limits: dict) -> dict:
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: RecurrentGemma-2B (RG-LRU + local attention), B4 at head width 256.
+# ---------------------------------------------------------------------------
+
+
+def phase_recurrentgemma(dev, limits: dict) -> dict:
+    """Phase 16: RecurrentGemma-2B at full width and depth. 16a serves it
+    through ``serve`` with RG_SERVE's load, every B4 call held as it is
+    made (each prefill launches B4 once a local layer); 16b runs
+    ``gqa_model_run`` on 2 x 4096 tokens, a prefill of RG_PREFILL and 32
+    decode steps held to the forward, with a host timer around each RG-LRU
+    scan of the prefill, the scan's kernels counted by the profiler on one
+    scan at the prefill's shape, and B4 timed on the forward's first call
+    ((2, 4096, 10, 1, 256), window 2048)."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_launches = []
+    prefill = lm.Model.prefill
+
+    def counted_prefill(self, *args, **kwargs):
+        for counter in COUNTERS.values():
+            counter.launches = 0
+        out = prefill(self, *args, **kwargs)
+        prefill_launches.append(COUNTERS["flash_attention"].launches)
+        return out
+
+    lm.Model.prefill = counted_prefill
+    try:
+        with held_flash() as held:
+            run = serve(RG_ARCH, smoke=False, device=dev, **RG_SERVE)
+    finally:
+        lm.Model.prefill = prefill
+    serve_s = time.perf_counter() - t0
+    cfg = run.model.cfg
+    kinds = collections.Counter(cfg.layer_kinds)
+    n_params = sum(x.numel() for x in tree_leaves(run.params))
+    print(f"[16a] serve('{RG_ARCH}', smoke=False): {cfg.n_layers} layers (full depth: "
+          f"{kinds['rglru']} rglru, {kinds['local']} local), d_model {cfg.d_model}, lru width "
+          f"{cfg.lru_width}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim_}, window "
+          f"{cfg.window}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (tied), {n_params:.4g} parameters "
+          f"({4 * n_params / 1e9:.2f} GB float32); serve wall {serve_s:.3f} s with every B4 "
+          f"call held as it was made")
+    if prefill_launches != [kinds["local"]] * (RG_SERVE["n_batches"] + 1):
+        raise AssertionError(f"16a B4 launches per prefill {prefill_launches}, expected "
+                             f"{kinds['local']} (one a local layer) for each")
+    if held["calls"] != sum(prefill_launches):
+        raise AssertionError(f"16a held {held['calls']} B4 calls of {sum(prefill_launches)}")
+    pi = run.router.pi[0]
+    if not np.isfinite(run.router.latency_bound):
+        raise AssertionError(f"16a plan latency bound {run.router.latency_bound}")
+    if any(pi[j] <= 0 for r in run.replicas for j in r):
+        raise AssertionError(f"16a routed outside pi's support: {run.replicas}, pi {pi}")
+    for toks in run.tokens:
+        if toks.shape != (RG_SERVE["batch"], RG_SERVE["gen_len"] + 1) or not (
+                (toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"16a generated tokens {tuple(toks.shape)} out of range")
+    lat = np.asarray(run.latencies)
+    result = dict(params=n_params, serve_launches=sum(prefill_launches),
+                  serve_max_abs_err=held["max_abs_err"])
+    print(f"[16a] {held['calls']} B4 calls of the serve path == plain twin, max_abs_err "
+          f"{held['max_abs_err']:.3g}; routes {run.replicas} inside pi's support "
+          f"{np.round(pi, 3)}; prefill {np.mean(run.prefill_s) * 1e3:.3f} ms per "
+          f"{RG_SERVE['batch'] * RG_SERVE['prompt_len']}-token batch and decode "
+          f"{np.mean(run.decode_s) / RG_SERVE['gen_len'] * 1e3:.3f} ms/token at batch "
+          f"{RG_SERVE['batch']} (holds included); batch latency mean {lat.mean() * 1e3:.3f} ms; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del run, held
+    torch.cuda.empty_cache()
+
+    # 16b: teacher forcing past the window, the RG-LRU scans of the prefill timed
+    scan, scans = rglru._linear_scan, dict(s=0.0, calls=0)
+
+    def timed_scan(a, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = scan(a, b)
+        torch.cuda.synchronize()
+        scans["s"] += time.perf_counter() - t
+        scans["calls"] += 1
+        return out
+
+    def hook(name):  # the host timer wraps the prefill's scans only
+        rglru._linear_scan = timed_scan if name == "prefill" else scan
+
+    tf = gqa_model_run(RG_ARCH, dev, tag="16b", limits=limits, prefill=RG_PREFILL,
+                       stage_hook=hook, time_call="first")
+    if scans["calls"] != kinds["rglru"]:
+        raise AssertionError(f"16b: {scans['calls']} RG-LRU scans in a prefill of "
+                             f"{kinds['rglru']} rglru layers")
+    lru = cfg.lru_width or cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(GQA_SEED + 2)
+    a = torch.rand((GQA_BATCH, RG_PREFILL, lru), generator=gen, device=dev)
+    b = torch.randn((GQA_BATCH, RG_PREFILL, lru), generator=gen, device=dev)
+    per_scan = kernels_in(lambda: rglru._linear_scan(a, b))
+    scan_ms, _ = cuda_ms(lambda: rglru._linear_scan(a, b), reps=3)
+    del a, b
+    share = scans["s"] / (tf["prefill_ms"] / 1e3)
+    print(f"[16b] RG-LRU scans in the prefill ({GQA_BATCH} x {RG_PREFILL} tokens, a host timer "
+          f"around each of {scans['calls']} layers' scans): {scans['s'] * 1e3:.3f} ms, "
+          f"{100 * share:.1f} % of the prefill's {tf['prefill_ms']:.3f} ms (timed without the "
+          f"holds); one scan at ({GQA_BATCH}, {RG_PREFILL}, {lru}) {scan_ms:.3f} ms (CUDA "
+          f"events), {per_scan} kernels (torch.profiler, "
+          f"{int(np.ceil(np.log2(RG_PREFILL)))} doubling steps)")
+    result.update(tf, scan_share=share, scan_ms=scan_ms, scan_kernels=per_scan)
+    print(f"[16] phase 16 wall {time.perf_counter() - t0:.3f} s")
+    return result
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)  # keep output if the run is cut
@@ -4194,6 +4363,7 @@ def main() -> int:
     gqa = phase_gqa(dev, limits)
     late = phase_encdec_rwkv(dev, limits)
     mla = phase_mla(dev, limits)
+    rg = phase_recurrentgemma(dev, limits)
     by_path = {"quickstart_simulate": quick_launches,
                "catalog_simulate_fleet": fleet_launches,
                "figures_simulate": figure_launches,
@@ -4262,8 +4432,11 @@ def main() -> int:
                    **{f"{arch}_forward_prefill": run["launches"]
                       for arch, run in gqa["models"].items()},
                    "seamless-m4t-medium_forward_prefill": late["encdec"]["launches"],
-                   f"{MLA_ARCH}_forward_prefill": mla["launches"]}
+                   f"{MLA_ARCH}_forward_prefill": mla["launches"],
+                   f"{RG_ARCH}_serve_prefill": rg["serve_launches"],
+                   f"{RG_ARCH}_forward_prefill": rg["launches"]}
     phi4, encdec, qk192 = gqa["record"], late["encdec"]["record"], mla["record"]
+    hd256 = rg["record"]
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
@@ -4274,6 +4447,7 @@ def main() -> int:
         "launches_by_path": flash_paths,
         "max_abs_err": max(flash_err, flash["max_abs_err"], grad["record"]["max_abs_err"],
                            phi4["max_abs_err"], encdec["max_abs_err"], qk192["max_abs_err"],
+                           rg["serve_max_abs_err"], hd256["max_abs_err"],
                            *(run["max_abs_err"] for run in gqa["models"].values())),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
@@ -4310,6 +4484,13 @@ def main() -> int:
         "bound_ms_qk192_v128": qk192["bound_ms"],
         "bound_by_qk192_v128": qk192["bound_by"],
         "library_ms_qk192_v128": qk192["library_ms"],
+        # phase 16b's head width 256 at RecurrentGemma's forward (2, 4096, 10, 1,
+        # 256), window 2048; the library call is SDPA with a boolean window mask
+        "ms_hd256": hd256["ms"],
+        "plain_ms_hd256": hd256["plain_ms"],
+        "bound_ms_hd256": hd256["bound_ms"],
+        "bound_by_hd256": hd256["bound_by"],
+        "library_ms_hd256": hd256["library_ms"],
     })
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(card)  # again, so that the end of the output names the card

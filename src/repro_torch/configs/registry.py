@@ -1,13 +1,13 @@
 """Architecture registry: ``get_config(arch_id)`` / ``ARCHS``.
 
-The reference registers ten architectures. The port builds those whose
-layer kinds it has ported: SmolLM-135M, the five GQA models of head width
-128 (StarCoder2, Phi-4-mini, Gemma3 with its q/k norm and local layers,
-the Qwen3 MoE, Qwen2-VL with M-RoPE), DeepSeek-V3 (MLA, 256 routed experts
-and a shared one, three leading dense layers), the encoder-decoder
-SeamlessM4T-medium and the attention-free RWKV6-1.6B. The last one,
-RecurrentGemma, raises ``KeyError`` naming ROADMAP A20 (its RG-LRU layers
-come with it); a name neither package knows raises as in the reference.
+The reference registers ten architectures, and the port builds all ten:
+SmolLM-135M, the five GQA models of head width 128 (StarCoder2,
+Phi-4-mini, Gemma3 with its q/k norm and local layers, the Qwen3 MoE,
+Qwen2-VL with M-RoPE), DeepSeek-V3 (MLA, 256 routed experts and a shared
+one, three leading dense layers), the encoder-decoder SeamlessM4T-medium,
+RecurrentGemma-2B (RG-LRU layers beside MQA local attention at head width
+256) and the attention-free RWKV6-1.6B. A name the registry does not know
+raises ``KeyError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from . import (
     phi4_mini_3p8b,
     qwen2_vl_2b,
     qwen3_moe_30b_a3b,
+    recurrentgemma_2b,
     rwkv6_1p6b,
     seamless_m4t_medium,
     smollm_135m,
@@ -33,6 +34,7 @@ _MODULES = {
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "deepseek-v3-671b": deepseek_v3_671b,
     "seamless-m4t-medium": seamless_m4t_medium,
+    "recurrentgemma-2b": recurrentgemma_2b,
     "qwen2-vl-2b": qwen2_vl_2b,
     "rwkv6-1.6b": rwkv6_1p6b,
 }
@@ -54,10 +56,6 @@ ARCHS = (
 def _module(arch: str):
     if arch in _MODULES:
         return _MODULES[arch]
-    if arch in ARCHS:
-        raise KeyError(
-            f"arch {arch!r} is not ported yet (ROADMAP A20); ported: {tuple(_MODULES)}"
-        )
     raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from .projection import bracket_fixed
 from .queueing import ServiceMoments, node_arrival_rates, pk_sojourn_moments
 
 # sum_j pi_ij within this of 1 counts as k_i == 1 (z-infimum edge case)
@@ -39,10 +40,13 @@ def bound_given_z(pi: Tensor, eq: Tensor, varq: Tensor, z: Tensor) -> Tensor:
     return z + torch.sum(body, dim=-1)
 
 
-def _dbound_dz(pi: Tensor, eq: Tensor, varq: Tensor, z: Tensor) -> Tensor:
+def _dbound_dz_negative(half_pi: Tensor, eq: Tensor, varq: Tensor, z: Tensor) -> Tensor:
+    """Whether the derivative ``1 - sum_j (pi_ij/2) (1 + r_j)`` is below 0,
+    from ``half_pi = 0.5 * pi``: the sum exceeds 1 exactly when 1 minus it
+    is negative (near 1 the subtraction is exact), so the sum is compared."""
     x = eq - z[..., None]
     r = x / torch.sqrt(x**2 + varq)
-    return 1.0 - torch.sum(0.5 * pi * (1.0 + r), dim=-1)
+    return torch.sum(half_pi * (1.0 + r), dim=-1) > 1.0
 
 
 def _instance_scale(eq: Tensor, varq: Tensor, instance_ndim: int | None) -> Tensor:
@@ -75,18 +79,23 @@ def optimal_z(
     independent instances, each with its own scale, as the reference's
     ``vmap`` gives it. ``None`` takes the whole arrays as one instance.
     ``k_i == 1`` files (``sum_j pi_ij`` within :data:`K1_TOL` of 1) get the
-    bisection floor.
+    bisection floor. On host tensors the loop stops at its bracket's fixed
+    point (``projection.bracket_fixed``), with the same result.
     """
     scale = _instance_scale(eq, varq, instance_ndim)
     batch = pi.shape[:-1]
     floor = torch.full(batch, -64.0, dtype=pi.dtype, device=pi.device) * scale
     lo = floor
     hi = torch.full(batch, 4.0, dtype=pi.dtype, device=pi.device) * scale
+    half_pi = 0.5 * pi
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
-        neg = _dbound_dz(pi, eq, varq, mid) < 0.0
-        lo = torch.where(neg, mid, lo)
-        hi = torch.where(neg, hi, mid)
+        neg = _dbound_dz_negative(half_pi, eq, varq, mid)
+        new_lo = torch.where(neg, mid, lo)
+        new_hi = torch.where(neg, hi, mid)
+        if bracket_fixed(lo, hi, new_lo, new_hi):
+            break  # the remaining steps would leave it as it is
+        lo, hi = new_lo, new_hi
     k = torch.sum(pi, dim=-1)
     return torch.where(k <= 1.0 + K1_TOL, floor, 0.5 * (lo + hi))
 
@@ -170,7 +179,11 @@ def tail_probability_bounds(
             x = eq - probes[..., None]
             f = torch.sum(half_pi * (x + torch.hypot(x, sd)), dim=-1) / (deadline - probes)
             shrink_hi = f[0] < f[1]  # the minimum is left of b
-            lo, hi = torch.where(shrink_hi, lo, probes[0]), torch.where(shrink_hi, probes[1], hi)
+            new_lo = torch.where(shrink_hi, lo, probes[0])
+            new_hi = torch.where(shrink_hi, probes[1], hi)
+            if bracket_fixed(lo, hi, new_lo, new_hi):
+                break  # the remaining steps would leave it as it is
+            lo, hi = new_lo, new_hi
     z = 0.5 * (lo + hi)
     return excess(z) / (deadline - z)
 

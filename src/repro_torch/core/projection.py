@@ -8,11 +8,29 @@ Projection of v onto P_i is x = clip(v - tau, 0, 1) on the allowed support,
 where tau solves g(tau) = sum_j clip(v_j - tau, 0, 1) = k_i. g is
 nonincreasing and piecewise-linear; it is solved by bisection, vectorized
 over files (all reductions over the last axis, so stacked batches work).
+
+A bisection step is a function of its bracket alone, so once a step leaves
+(lo, hi) as it was, every later step does too. On host tensors the
+bisections here and in ``latency_bound`` (``optimal_z``, the golden-section
+search of ``tail_probability_bounds``) stop at that fixed point
+(:func:`bracket_fixed`), after 27-50 of their 60 or 80 steps in a JLCM
+solve, with the same result bit for bit; on the card they run every step,
+since the check would synchronise the host.
 """
 from __future__ import annotations
 
 import torch
 from torch import Tensor
+
+
+def bracket_fixed(lo: Tensor, hi: Tensor, new_lo: Tensor, new_hi: Tensor) -> bool:
+    """True on host tensors when a bisection step left its bracket as it
+    was, bit for bit (the signs of zeros included; a NaN is never fixed);
+    always False on the card, where the check would synchronise."""
+    if lo.device.type != "cpu" or not (torch.equal(new_lo, lo) and torch.equal(new_hi, hi)):
+        return False
+    return (torch.equal(torch.signbit(new_lo), torch.signbit(lo))
+            and torch.equal(torch.signbit(new_hi), torch.signbit(hi)))
 
 
 def project_capped_simplex(
@@ -45,8 +63,11 @@ def project_capped_simplex(
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
         too_big = g(mid) > k  # need larger tau
-        lo = torch.where(too_big, mid, lo)
-        hi = torch.where(too_big, hi, mid)
+        new_lo = torch.where(too_big, mid, lo)
+        new_hi = torch.where(too_big, hi, mid)
+        if bracket_fixed(lo, hi, new_lo, new_hi):
+            break  # the remaining steps would leave it as it is
+        lo, hi = new_lo, new_hi
     tau = 0.5 * (lo + hi)
     x = torch.clamp(vm - tau[..., None], 0.0, 1.0)
     return torch.where(mask, x, 0.0)

@@ -15,7 +15,8 @@
 // or bfloat16). The reference's kernel takes one width (vd = hd); its lax
 // chunked_sdpa (src/repro/models/attention_opt.py:30), which the kernel
 // stands for on the model path, also takes vd != hd, and MLA (DeepSeek-V3)
-// runs hd = 192 (nope 128 + rope 64) against vd = 128.
+// runs hd = 192 (nope 128 + rope 64) against vd = 128. RecurrentGemma's
+// local layers run hd = vd = 256 (MQA: G = 10 query heads on one KV head).
 // Keys [Tk, Tkp) are the reference's zero padding to its key block; they
 // are masked only by the causal test, as there. A row with no valid key at
 // all gets equal weights on [0, Tkp), which is what the reference's
@@ -62,11 +63,11 @@
 //   vd + 4 (hd + 8 and vd + 8 bfloat16, 16 bytes). K's B fragment reads
 //   row 8nt+g, column 8kk+t, and V's reads rows 2t, 2t+1, column g; with
 //   those strides the 32 lanes of a float32 read hit 32 distinct banks for
-//   every width in {8, 16, 32, 64, 128, 192} (a stride of 4 mod 32 words
+//   every width in {8, 16, 32, 64, 128, 192, 256} (a stride of 4 mod 32 words
 //   puts lane (g, t) of K on bank 4g + t and of V on 8t + g).
-// - (hd, vd) in (8, 8), (16, 16), (32, 32), (64, 64), (128, 128) and
-//   (192, 128) are instantiated. At hd = 8 a float32 product is one
-//   k-step; the bfloat16 k16 step zero-fills columns >= hd.
+// - (hd, vd) in (8, 8), (16, 16), (32, 32), (64, 64), (128, 128),
+//   (192, 128) and (256, 256) are instantiated. At hd = 8 a float32
+//   product is one k-step; the bfloat16 k16 step zero-fills columns >= hd.
 // - Ragged T = 2016 with G = 3 is 6048 rows, 94.5 blocks of 64: the last
 //   block's rows past Tq compute and never store.
 // - Accuracy: the tensor cores add into their float32 accumulator more
@@ -105,6 +106,26 @@
 //   big parked in shared memory (216 registers, one block an SM) 10.3-10.4
 //   ms. The bfloat16 instance keeps a whole tile of P V (64-key tiles,
 //   255 registers, no spill).
+// - Registers and shared memory at (256, 256), RecurrentGemma's width, in
+//   float32: Q big alone is 128 registers (32 k-steps) and O 128, the
+//   whole file before S, P V or a fragment; and Q small's 64 KB beside a
+//   16-key ring's 66.5 KB would pass two blocks' share of shared memory.
+//   So the width is split across a pair of warps (`width_split`): a block
+//   has 8 warps, two on each group of 16 rows; each warp holds Q's k-steps
+//   and O's columns for its half of the width (64 + 64 registers, as at
+//   hd = 128, and a whole tile of P V), computes S over its half of q/k,
+//   and the pair adds its two partial S through shared memory once a key
+//   tile (16 x KT floats a warp), so both take the same m, l and P; each
+//   then computes P V for its own 128 columns of v. One block of 8 warps an
+//   SM (`blocks_per_sm`), the same warps an SM as two blocks of 4: float32
+//   reads 32-key tiles (a 130 KB ring, Q small 64 KB, partial S 16 KB; 210
+//   KB), bfloat16 64-key tiles (132 KB + 32 KB). The other instances keep
+//   split 1, two blocks an SM, and their code. At RecurrentGemma's forward
+//   (tools/b4_hd128_variants.py, an H100 at 700 W) this design took
+//   3.08-3.19 ms; 16-key tiles 3.12-3.24 ms, Q big parked in shared memory
+//   with one warp a row group (4 warps an SM) 4.30-4.34 ms, and two
+//   launches of a (256, 128) instance over v's halves, each recomputing S,
+//   7.47-7.49 ms.
 //
 // What bounds it on an H100 SXM (NVIDIA's published peaks, at the full
 // 700 W power limit). At SmolLM-135M's prefill, (B, T, H, KH, hd) =
@@ -117,7 +138,11 @@
 // TF32 passes 0.606 ms, one pass 0.202 ms. At MLA's prefill in
 // DeepSeek-V3, (B, T, H, KH, hd, vd) = (2, 2016, 128, 128, 192, 128), the
 // band is 2 * (hd + vd) per pair, 3.331e11 FLOP: three TF32 passes 2.019
-// ms, one pass 0.673 ms, the bytes (1.321 GB) 0.394 ms.
+// ms, one pass 0.673 ms, the bytes (1.321 GB) 0.394 ms. At RecurrentGemma's
+// local attention in a 2 x 4096-token forward, (2, 4096, 10, 1, 256) with
+// window 2048, the window leaves 1.259e8 visible pairs (the causal mask
+// alone 1.678e8), 2 * (hd + vd) = 1024 FLOP each, 1.289e11 FLOP: three TF32
+// passes 0.781 ms, one pass 0.260 ms, the bytes (0.184 GB) 0.055 ms.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -138,22 +163,44 @@ constexpr float NEG = -1e30f;
 template <typename T>
 __host__ __device__ constexpr int pad() { return 16 / (int)sizeof(T); }  // 16 bytes of row padding
 
-constexpr int TWO_BLOCKS_SMEM = 233472 / 2 - 1024;  // an SM's shared memory, per block
+// warps that share one group of 16 rows, each taking 1 / split of q/k's
+// and of v's width: 2 where Q's fragments and O alone would fill the
+// register file (float32 (256, 256): 128 + 128 registers), else 1
+template <typename T, int HD, int VD>
+__host__ __device__ constexpr int width_split() { return HD + VD > 384 ? 2 : 1; }
 
-// the K/V ring of `kt`-key tiles and, for float32, Q small
+// the blocks an SM the launcher is built for (__launch_bounds__, shared
+// memory): 2 of 4 warps, or 1 of 8 warps where the width is split; either
+// way 8 warps an SM and at most 255 registers a thread
+template <typename T, int HD, int VD>
+__host__ __device__ constexpr int blocks_per_sm() { return 2 / width_split<T, HD, VD>(); }
+
+// an SM's shared memory (228 KB, 1 KB of it the runtime's a block) per block
+template <typename T, int HD, int VD>
+__host__ __device__ constexpr int smem_budget() {
+  return 233472 / blocks_per_sm<T, HD, VD>() - 1024;
+}
+
+// the K/V ring of `kt`-key tiles, for float32 Q small, and where the width
+// is split, the pairs' partial S (16 rows x kt keys a warp)
 template <typename T, int HD, int VD>
 __host__ __device__ constexpr int smem_bytes_at(int kt) {
   return STAGES * kt * (HD + VD + 2 * pad<T>()) * (int)sizeof(T) +
-         (std::is_same<T, float>::value ? WARPS * (HD / 8) * 32 * 16 : 0);  // Q small
+         (std::is_same<T, float>::value ? WARPS * (HD / 8) * 32 * 16 : 0) +  // Q small
+         (width_split<T, HD, VD>() > 1 ? WARPS * width_split<T, HD, VD>() * 16 * kt * 4 : 0);
 }
 
-// keys per shared-memory tile: the largest of 64, 32 and 16 that leaves
-// room for two blocks an SM (float32: 32 at hd = 128, 16 at (192, 128))
+// keys per shared-memory tile: the largest of 64, 32 and 16 whose shared
+// memory fits blocks_per_sm() blocks an SM, 0 if none does (refused where
+// the kernel is launched). Two blocks: float32 32 keys at hd = 128, 16 at
+// (192, 128); one block of 8 warps at (256, 256): 32 keys in float32 (210
+// KB), 64 in bfloat16 (164 KB)
 template <typename T, int HD, int VD>
 __host__ __device__ constexpr int key_tile() {
-  return smem_bytes_at<T, HD, VD>(64) <= TWO_BLOCKS_SMEM   ? 64
-         : smem_bytes_at<T, HD, VD>(32) <= TWO_BLOCKS_SMEM ? 32
-                                                           : 16;
+  return smem_bytes_at<T, HD, VD>(64) <= smem_budget<T, HD, VD>()   ? 64
+         : smem_bytes_at<T, HD, VD>(32) <= smem_budget<T, HD, VD>() ? 32
+         : smem_bytes_at<T, HD, VD>(16) <= smem_budget<T, HD, VD>() ? 16
+                                                                    : 0;
 }
 
 template <typename T, int HD, int VD>
@@ -241,12 +288,16 @@ __device__ __forceinline__ void put2(__nv_bfloat16* p, float x, float y) {
 }
 
 template <typename T, int HD, int VD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__((THREADS * width_split<T, HD, VD>()),
+                                  (blocks_per_sm<T, HD, VD>()))
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        int tq, int tk, int tkp, int h, int kh, float scale,
                        int causal, int has_window, int window) {
   constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int SPLIT = width_split<T, HD, VD>();  // warps sharing a row group's width
+  constexpr int NTHREADS = THREADS * SPLIT;
+  constexpr int HDW = HD / SPLIT, VDW = VD / SPLIT;  // a warp's q/k and v columns
   constexpr int KT = key_tile<T, HD, VD>();  // keys per shared-memory tile
   constexpr int NT = KT / 8;                // 8-key groups per tile
   constexpr int LDK = HD + pad<T>();        // shared row stride of K, elements
@@ -254,8 +305,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte copy
   constexpr int CPRK = HD / EPC, CPRV = VD / EPC;  // copies per key row of K, of V
   constexpr int CPR = CPRK > CPRV ? CPRK : CPRV;
-  constexpr int DN = VD / 8;                // 8-wide column groups of the output
-  constexpr int KS = F32 ? HD / 8 : (HD + 15) / 16;  // k-steps of Q K^T
+  constexpr int DN = VDW / 8;               // the warp's 8-wide column groups of the output
+  constexpr int KS = F32 ? HDW / 8 : (HDW + 15) / 16;  // the warp's k-steps of Q K^T
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const smem = reinterpret_cast<T*>(smem_raw);
@@ -266,7 +317,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tile = n_tiles - 1 - (int)blockIdx.x;  // heaviest tiles first
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp_id = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the warp's row group, and its share of the widths: q/k columns
+  // [qc0, qc0 + HDW), v and output columns [vc0, vc0 + VDW)
+  const int warp = SPLIT > 1 ? warp_id % WARPS : warp_id;
+  const int share = SPLIT > 1 ? warp_id / WARPS : 0;
+  const int qc0 = share * HDW, vc0 = share * VDW;
   const int gq = lane >> 2, tq4 = lane & 3;  // mma groupID, thread in group
 
   // the thread's two rows: r = 0 is row gq of the warp, r = 1 row gq + 8
@@ -329,7 +385,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // (uint4 [warp][kk][lane], read back by the same thread); bfloat16 as
   // packed pairs in registers
   uint4* const qsmall =
-      reinterpret_cast<uint4*>(smem_raw + STAGES * KT * (LDK + LDV) * sizeof(T)) + warp * KS * 32 +
+      reinterpret_cast<uint4*>(smem_raw + STAGES * KT * (LDK + LDV) * sizeof(T)) + warp_id * KS * 32 +
       lane;
   uint32_t qa[KS][4];
 #pragma unroll
@@ -339,13 +395,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int r = i & 1;  // a0, a2: row gq; a1, a3: row gq + 8
       if constexpr (F32) {
-        const int col = 8 * kk + tq4 + 4 * (i >> 1);
+        const int col = qc0 + 8 * kk + tq4 + 4 * (i >> 1);
         const float x = active[r] ? q[row_off[r] + col] : 0.f;
         split(x, qa[kk][i], qs[i]);
       } else {
         const int col = 16 * kk + 2 * tq4 + 8 * (i >> 1);
-        qa[kk][i] = active[r] && col < HD
-                        ? *reinterpret_cast<const uint32_t*>(q + row_off[r] + col)
+        qa[kk][i] = active[r] && col < HDW
+                        ? *reinterpret_cast<const uint32_t*>(q + row_off[r] + qc0 + col)
                         : 0u;
       }
     }
@@ -363,7 +419,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto load_tile = [&](int k0, int s) {
     T* ks = stage_k(s);
     T* vs = ks + KT * LDK;
-    for (int c = threadIdx.x; c < KT * CPR; c += THREADS) {
+    for (int c = threadIdx.x; c < KT * CPR; c += NTHREADS) {
       const int j = c / CPR, part = c % CPR;
       const int ik = k0 + j;
       const bool real = ik < tk;  // padded keys are zeros
@@ -403,7 +459,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const T* kr = ks + (8 * nt + gq) * LDK;
+          const T* kr = ks + (8 * nt + gq) * LDK + qc0;
           if constexpr (F32) {
             uint32_t bb0, bs0, bb1, bs1;
             split(kr[8 * kk + tq4], bb0, bs0);
@@ -412,9 +468,31 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           } else {
             const int c0 = 16 * kk + 2 * tq4;
             const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + c0);
-            const uint32_t b1 = c0 + 8 < HD ? *reinterpret_cast<const uint32_t*>(kr + c0 + 8) : 0u;
+            const uint32_t b1 = c0 + 8 < HDW ? *reinterpret_cast<const uint32_t*>(kr + c0 + 8) : 0u;
             mma_bf16(s[nt], qa[kk], b0, b1);
           }
+        }
+      }
+
+      if constexpr (SPLIT > 1) {
+        // the pair's partial S (over its halves of q/k's width) summed through
+        // shared memory: each warp parks its own (float4 [warp][nt][lane])
+        // and adds its partner's, so both hold the same S (a + b == b + a)
+        // and take the same m and l; they sync as a pair (named barrier
+        // 1 + row group, 64 threads). The ring's __syncthreads below keeps
+        // the next tile's writes after these reads.
+        float4* const sx = reinterpret_cast<float4*>(
+            smem_raw + STAGES * KT * (LDK + LDV) * sizeof(T) +
+            (F32 ? WARPS * SPLIT * KS * 32 * 16 : 0));
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          sx[(warp_id * NT + nt) * 32 + lane] = make_float4(s[nt][0], s[nt][1], s[nt][2], s[nt][3]);
+        asm volatile("bar.sync %0, %1;" ::"r"(1 + warp), "r"(32 * SPLIT) : "memory");
+        const int other = warp + (1 - share) * WARPS;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float4 x = sx[(other * NT + nt) * 32 + lane];
+          s[nt][0] += x.x, s[nt][1] += x.y, s[nt][2] += x.z, s[nt][3] += x.w;
         }
       }
 
@@ -456,7 +534,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // O = alpha O + P V, with this tile's P V taken from zero and added in
       // float32 (the tensor cores' own accumulation is coarser than
       // float32's round to nearest, and O runs over every tile)
-      if constexpr (fold_pv<T, HD, VD>()) {
+      if constexpr (fold_pv<T, HDW, VDW>()) {
         static_assert(F32, "the fold is written for the float32 instances");
         // P split once a tile; each 8-column group of P V summed over the
         // tile's keys, then folded into O
@@ -473,7 +551,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           float pv[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
-            const T* vr = vs + (8 * nt + 2 * tq4) * LDV + gq + 8 * d;
+            const T* vr = vs + (8 * nt + 2 * tq4) * LDV + vc0 + gq + 8 * d;
             uint32_t bb0, bs0, bb1, bs1;
             split(vr[0], bb0, bs0);
             split(vr[LDV], bb1, bs1);
@@ -495,7 +573,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             split(s[nt][2], pb[1], ps[1]);
             split(s[nt][1], pb[2], ps[2]);
             split(s[nt][3], pb[3], ps[3]);
-            const T* vr = vs + (8 * nt + 2 * tq4) * LDV + gq;
+            const T* vr = vs + (8 * nt + 2 * tq4) * LDV + vc0 + gq;
 #pragma unroll
             for (int d = 0; d < DN; ++d) {
               uint32_t bb0, bs0, bb1, bs1;
@@ -511,7 +589,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                     pack_bf16(s[2 * j][2], s[2 * j][3]),
                                     pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
                                     pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-            const T* vr = vs + (16 * j + 2 * tq4) * LDV + gq;
+            const T* vr = vs + (16 * j + 2 * tq4) * LDV + vc0 + gq;
 #pragma unroll
             for (int d = 0; d < DN; ++d) {
               const T* x = vr + 8 * d;
@@ -535,7 +613,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (active[r]) {
 #pragma unroll
       for (int d = 0; d < DN; ++d)
-        put2(out + out_off[r] + 8 * d + 2 * tq4, o[d][2 * r] / den, o[d][2 * r + 1] / den);
+        put2(out + out_off[r] + vc0 + 8 * d + 2 * tq4, o[d][2 * r] / den, o[d][2 * r + 1] / den);
     }
   }
 }
@@ -545,16 +623,40 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, in
                       int tq, int tk, int tkp, int h, int kh, float scale, int causal,
                       int has_window, int window, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, HD, VD>;
+  static_assert(key_tile<T, HD, VD>() > 0, "no key tile of 16 or more fits the shared memory");
   constexpr int bytes = smem_bytes<T, HD, VD>();
+  static_assert(bytes <= smem_budget<T, HD, VD>(), "shared memory past blocks_per_sm()'s share");
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const long long rows = (long long)tq * (h / kh);
   const dim3 grid((unsigned)((rows + ROWS - 1) / ROWS), kh, b);
-  kernel<<<grid, THREADS, bytes, stream>>>(
+  kernel<<<grid, THREADS * width_split<T, HD, VD>(), bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), tq, tk, tkp, h, kh, scale, causal, has_window, window);
   return cudaGetLastError();
+}
+
+template <int HD, int VD>
+struct Widths {
+  static constexpr int hd = HD, vd = VD;
+};
+
+// f(Widths<hd, vd>{}) for an instantiated width pair, else
+// cudaErrorInvalidValue
+template <typename F>
+cudaError_t by_widths(int hd, int vd, F&& f) {
+  if (hd == 192 && vd == 128) return f(Widths<192, 128>{});
+  if (vd != hd) return cudaErrorInvalidValue;
+  switch (hd) {
+    case 8: return f(Widths<8, 8>{});
+    case 16: return f(Widths<16, 16>{});
+    case 32: return f(Widths<32, 32>{});
+    case 64: return f(Widths<64, 64>{});
+    case 128: return f(Widths<128, 128>{});
+    case 256: return f(Widths<256, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -562,17 +664,28 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out,
                          int b, int tq, int tk, int tkp, int h, int kh, int hd,
                          int vd, float scale, int causal, int has_window, int window,
                          cudaStream_t stream) {
-  if (hd == 192 && vd == 128)
-    return launch_hd<T, 192, 128>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
-  if (vd != hd) return cudaErrorInvalidValue;
-  switch (hd) {
-    case 8: return launch_hd<T, 8>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
-    case 16: return launch_hd<T, 16>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
-    case 32: return launch_hd<T, 32>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
-    case 64: return launch_hd<T, 64>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
-    case 128: return launch_hd<T, 128>(q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return by_widths(hd, vd, [&](auto w) {
+    return launch_hd<T, decltype(w)::hd, decltype(w)::vd>(
+        q, k, v, out, b, tq, tk, tkp, h, kh, scale, causal, has_window, window, stream);
+  });
+}
+
+// the design of one instance (see flash_attention_plan)
+template <typename T>
+cudaError_t plan_typed(int hd, int vd, int* plan) {
+  return by_widths(hd, vd, [&](auto w) {
+    constexpr int HD = decltype(w)::hd, VD = decltype(w)::vd;
+    auto kernel = flash_attention_kernel<T, HD, VD>;
+    constexpr int bytes = smem_bytes<T, HD, VD>();
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    plan[0] = key_tile<T, HD, VD>();
+    plan[1] = bytes;
+    plan[2] = THREADS * width_split<T, HD, VD>();
+    plan[3] = blocks_per_sm<T, HD, VD>();
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plan[4], kernel, plan[2], bytes);
+  });
 }
 
 }  // namespace
@@ -599,5 +712,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (dtype == 1)
     return (int)launch_typed<__nv_bfloat16>(q, k, v, out, b, tq, tk, tkp, h, kh, hd, vd,
                                             scale, causal, has_window, window, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The design of the (hd, vd) instance for dtype (0 float32, 1 bfloat16), in
+// plan[0..4]: keys per shared-memory tile, dynamic shared memory bytes a
+// block, threads a block, the blocks an SM it is built for, and the blocks
+// an SM the runtime grants it (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Returns the query's cudaError_t (cudaErrorInvalidValue for a pair that is
+// not instantiated).
+extern "C" int flash_attention_plan(int hd, int vd, int dtype, int* plan) {
+  if (dtype == 0) return (int)plan_typed<float>(hd, vd, plan);
+  if (dtype == 1) return (int)plan_typed<__nv_bfloat16>(hd, vd, plan);
   return (int)cudaErrorInvalidValue;
 }

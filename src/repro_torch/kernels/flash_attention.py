@@ -12,7 +12,10 @@ Attention for q (B, Tq, H, hd) against k (B, Tk, KH, hd) and v
 The reference's Pallas kernel takes one width (vd = hd). Its lax
 ``chunked_sdpa``, which this kernel stands for on the model path, takes a v
 width of its own, and MLA (DeepSeek-V3) runs hd = 192 against vd = 128; so
-the kernel is built for the width pairs in ``HEAD_DIMS``.
+the kernel is built for the width pairs in ``HEAD_DIMS``, RecurrentGemma's
+hd = vd = 256 among them (there a pair of warps shares each row group's
+width). :func:`kernel_plan` reads an instance's tile, shared memory and
+blocks an SM from the library.
 
 Indices are absolute from 0, so Tq != Tk is allowed. Keys are padded with
 zeros to a multiple of ``k_blk``; a padded key is masked only by the causal
@@ -56,7 +59,7 @@ from ._build import build_library
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NEG = -1e30
 # (q/k width, v width) pairs the kernel is instantiated for
-HEAD_DIMS = ((8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
+HEAD_DIMS = ((8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 MAX_GROUP = 128  # the kernel's block holds 128 query rows of one KV head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,7 +73,22 @@ def load_library() -> ctypes.CDLL:
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_plan.restype = ctypes.c_int
     return lib
+
+
+def kernel_plan(hd: int, vd: int, dtype: torch.dtype) -> dict:
+    """The design of B4's (hd, vd) instance for ``dtype`` on the current
+    card: keys per shared-memory tile, dynamic shared memory a block
+    (bytes), threads a block, the blocks an SM it is built for and the
+    blocks an SM the runtime grants it. Builds the library; needs a card."""
+    plan = (ctypes.c_int * 5)()
+    err = load_library().flash_attention_plan(hd, vd, _DTYPES[dtype], plan)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_plan({hd}, {vd}) failed: cudaError_t {err}")
+    return dict(zip(("key_tile", "smem_bytes", "threads", "blocks_per_sm",
+                     "granted_blocks_per_sm"), plan))
 
 
 def _blocks(q: Tensor, k: Tensor, v: Tensor, causal: bool, k_blk: int) -> int:

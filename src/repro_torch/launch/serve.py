@@ -15,10 +15,11 @@ on the host); ``--arch`` serves any architecture the registry builds:
 ``smollm-135m``, ``starcoder2-15b``, ``phi4-mini-3.8b``, ``gemma3-27b``,
 ``qwen3-moe-30b-a3b``, ``deepseek-v3-671b`` (MLA and 256 routed experts;
 its 671B parameters do not fit one card with ``--full``, its smoke config
-runs), ``qwen2-vl-2b``, ``seamless-m4t-medium`` and ``rwkv6-1.6b``. Two
-fail in their first prefill, as in the reference: Qwen2-VL, whose M-RoPE
-needs (3, B, S) positions, and SeamlessM4T-medium, whose encoder needs the
-stub frontend's ``enc_embeds``; serving with text prompts makes neither. On
+runs), ``qwen2-vl-2b``, ``seamless-m4t-medium``, ``recurrentgemma-2b`` and
+``rwkv6-1.6b``. Two fail in their first prefill, as in the reference:
+Qwen2-VL, whose M-RoPE needs (3, B, S) positions, and SeamlessM4T-medium,
+whose encoder needs the stub frontend's ``enc_embeds``; serving with text
+prompts makes neither. On
 the card TF32 is switched off: the projections are float32 matmuls, and
 TF32 would break parity with the reference.
 """

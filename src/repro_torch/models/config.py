@@ -4,7 +4,7 @@ A copy of ``repro/models/config.py`` (plain frozen dataclasses, no JAX), so
 that the port imports nothing of the reference. The layer stack is
 described by ``prefix`` (leading layers), ``period`` (a repeating pattern
 run ``n_periods`` times; the reference scans it) and ``suffix`` (trailing
-layers). Layer kinds (the port runs all but rglru so far):
+layers). Layer kinds (the port runs all of them):
 
   attn    — full causal self-attention block (GQA + RoPE) + dense MLP
   local   — sliding-window causal attention block + dense MLP

@@ -2,8 +2,9 @@
 steps.
 
 The port of ``repro/models/lm.py`` for decoder-only models of the
-attention, MoE, MLA and RWKV6 kinds, q/k norms and M-RoPE included, and
-for the encoder-decoder. Batch dict keys, as in the reference:
+attention, MoE, MLA, RWKV6 and RG-LRU kinds (RecurrentGemma's RG-LRU
+layers beside local attention), q/k norms and M-RoPE included, and for the
+encoder-decoder. Batch dict keys, as in the reference:
 
   train / forward / prefill: tokens (B,S) int [, labels, positions,
                              enc_embeds, patch_embeds]
@@ -205,6 +206,10 @@ class Model:
                     "shift_tm": zeros(lead + (batch_size, cfg.d_model)),
                     "shift_cm": zeros(lead + (batch_size, cfg.d_model)),
                 }
+            if kind == "rglru":  # the float32 state and the conv's carried tail
+                lru = cfg.lru_width or cfg.d_model
+                return {"h": zeros(lead + (batch_size, lru), torch.float32),
+                        "conv": zeros(lead + (batch_size, cfg.conv_width - 1, lru))}
             if kind.startswith("mla"):  # the compressed (c_kv, k_pe) cache
                 m = cfg.mla
                 return {"self": {"ckv": zeros(lead + (batch_size, cache_len, m.kv_lora_rank)),

@@ -5,8 +5,9 @@ The port of ``repro/models/stack.py`` for the attention kinds (``attn``,
 path), DeepSeek's ``mla`` (MLA + the MoE MLP) and ``mla_dense`` (MLA + a
 dense MLP), the encoder-decoder's ``enc`` (bidirectional self-attention)
 and ``xattn`` (causal self-attention, then cross-attention over the
-encoder memory) kinds, and ``rwkv`` (the RWKV6 block, which owns its
-residuals).
+encoder memory) kinds, ``rwkv`` (the RWKV6 block, which owns its
+residuals) and ``rglru`` (pre-norm residual RG-LRU, then the dense MLP):
+every kind the reference has.
 The parameter tree is the reference's: ``prefix``
 and ``suffix`` are lists of blocks, and ``period`` is a list with one entry
 per position of the repeating pattern, each stacked on a leading
@@ -20,8 +21,8 @@ outputs of its plain matrix products (``aten.mm`` / ``addmm``, the dots
 with no batch dimensions that ``checkpoint_dots_with_no_batch_dims`` keeps)
 and recomputes the rest. The MoE layers' aux losses are summed over
 prefix, period and suffix and returned beside the output, as the
-reference's third value. The one kind left, RG-LRU, raises
-``NotImplementedError`` until ROADMAP A20 ports it.
+reference's third value. A kind the reference does not have raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,10 +55,12 @@ from .layers import (
     rope_angles,
 )
 from .moe import moe_apply, moe_init
+from .rglru import rglru_apply, rglru_init
 from .rwkv6 import rwkv_apply, rwkv_init
 
 Params = dict[str, Any]
-PORTED_KINDS = ("attn", "dense", "local", "moe", "mla", "mla_dense", "enc", "xattn", "rwkv")
+PORTED_KINDS = ("attn", "dense", "local", "moe", "mla", "mla_dense", "enc", "xattn", "rwkv",
+                "rglru")
 REMAT = ("none", "full", "dots")
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -74,7 +77,7 @@ def _mlp_kind(kind: str) -> str:
 def _check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (ROADMAP A20); "
+            f"layer kind {kind!r} is not a kind of the reference; "
             f"the port runs {PORTED_KINDS}"
         )
 
@@ -84,6 +87,13 @@ def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype, device)
     d = cfg.d_model
     if kind == "rwkv":
         return {"rwkv": rwkv_init(gen, cfg, dtype, device)}
+    if kind == "rglru":
+        return {
+            "ln1": rmsnorm_init(d, dtype, device),
+            "rglru": rglru_init(gen, cfg, dtype, device),
+            "ln2": rmsnorm_init(d, dtype, device),
+            "mlp": mlp_init(gen, d, cfg.d_ff, dtype, device),
+        }
     attn = mla_init if kind.startswith("mla") else attn_init
     p = {
         "ln1": rmsnorm_init(d, dtype, device),
@@ -109,13 +119,18 @@ def block_apply(
     cache: Params | None,
 ) -> tuple[Tensor, Params | None, Tensor]:
     """Pre-norm residual attention (GQA or MLA) + dense or MoE MLP block
-    (``xattn`` adds pre-norm residual cross-attention between the two), or
-    the RWKV6 block. Returns (x, new_cache, aux loss), the aux a float 0.0 for a
+    (``xattn`` adds pre-norm residual cross-attention between the two), the
+    RWKV6 block, or pre-norm residual RG-LRU + dense MLP. Returns (x, new_cache, aux loss), the aux a float 0.0 for a
     dense MLP."""
     _check_kind(kind)
     if kind == "rwkv":
         x, new_cache = rwkv_apply(p["rwkv"], x, cfg, ctx.mode, cache)
         return x, new_cache, 0.0
+    if kind == "rglru":
+        y, new_cache = rglru_apply(p["rglru"], rmsnorm(p["ln1"], x, cfg.norm_eps), ctx.mode,
+                                   cache)
+        x = x + y
+        return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps)), new_cache, 0.0
     self_cache = cache.get("self") if cache else None
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "enc":

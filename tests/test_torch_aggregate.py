@@ -33,6 +33,7 @@ import repro_torch.storage as PS
 from repro_torch.core.aggregate import _pad_pow2
 from repro_torch.core.scheduling import madow_sample
 from test_torch_slice import _port_draws, _ref_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 M = 12
 SOLVE_KW = dict(max_iters=300, eps=0.01)  # benchmarks/jlcm_scaling.py

@@ -1,7 +1,8 @@
 """The five GQA / MoE architectures of head width 128 (Gemma3, the Qwen3
-MoE, Qwen2-VL, Phi-4-mini, StarCoder2) and DeepSeek-V3 (MLA, a shared
-expert beside the routed ones, a leading dense layer) against the
-reference, on the CPU at their SMOKE sizes.
+MoE, Qwen2-VL, Phi-4-mini, StarCoder2), DeepSeek-V3 (MLA, a shared
+expert beside the routed ones, a leading dense layer) and RecurrentGemma
+(RG-LRU layers beside MQA local attention) against the reference, on the
+CPU at their SMOKE sizes.
 
 Both packages build each SMOKE config through ``build_model``; the
 reference's weights are carried across with ``params_from_numpy``. The
@@ -36,9 +37,10 @@ from repro.configs.registry import get_smoke_config as ref_smoke_config
 import repro_torch.launch.steps as PS
 from repro_torch.launch.serve import serve
 from repro_torch.models import layers, params_from_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ARCHS = ("gemma3-27b", "qwen3-moe-30b-a3b", "qwen2-vl-2b", "phi4-mini-3.8b", "starcoder2-15b",
-         "deepseek-v3-671b")
+         "deepseek-v3-671b", "recurrentgemma-2b")
 ATOL = 1e-4
 B = 2
 
@@ -170,8 +172,8 @@ def decode_tracks_teacher_forcing(arch: str, batch: dict, t0: int = 12) -> None:
 @pytest.mark.parametrize("opt", ["O0", "O3"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_greedy_decode_and_forward_match(arch, opt):
-    """A 20-token prompt (past Gemma3's smoke window of 16, so its local
-    caches are rolling buffers) and 6 greedy steps."""
+    """A 20-token prompt (past Gemma3's and RecurrentGemma's smoke window
+    of 16, so their local caches are rolling buffers) and 6 greedy steps."""
     serve_path_matches(arch, opt, _batch(ref_smoke_config(arch), 20))
 
 

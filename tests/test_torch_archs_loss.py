@@ -1,12 +1,13 @@
-"""The training loss of the five GQA / MoE architectures of head width 128
-and DeepSeek-V3 against the reference, and the options the port used to
-refuse, on the CPU at SMOKE sizes (the helpers and the weights of
+"""The training loss of the five GQA / MoE architectures of head width 128,
+DeepSeek-V3 and RecurrentGemma against the reference, and the options the
+port used to refuse, on the CPU at SMOKE sizes (the helpers and the weights of
 ``test_torch_archs.py``; the reference under ``jax.jit``). Tolerances:
 
 * ``Model.loss`` (with the MoE aux loss) at rtol 2e-4 and its gradients
   against ``jax.grad(model.loss)`` at atol 1e-4 (as ``test_torch_train.py``),
   the aux loss itself at rtol 1e-5;
-* ``remat`` "full" and "dots" bitwise "none" on MoE and q/k-norm stacks;
+* ``remat`` "full" and "dots" bitwise "none" on MoE, q/k-norm and RG-LRU
+  stacks;
 * an MoE layer, q/k norms and M-RoPE sections, each alone on the smoke
   SmolLM: logits at atol 1e-4 and the loss at rtol 2e-4.
 """
@@ -22,6 +23,7 @@ from repro.configs.registry import get_smoke_config as ref_smoke_config
 from repro_torch.models.config import MoEConfig
 from repro_torch.tree import flatten_with_keys
 from test_torch_archs import ARCHS, _batch, _close, _jax, _pair, _torch
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 # ------------------------------------------------------- loss and gradients
@@ -84,9 +86,9 @@ def test_options_alone_match_reference(change):
                                float(jax.jit(ref.loss)(ref_params, _jax(batch))), rtol=2e-4)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "gemma3-27b", "recurrentgemma-2b"])
 def test_remat_covers_moe_and_qk_norm_layers_bitwise(arch):
-    """``remat`` "full" and "dots" recompute MoE and q/k-norm layers as they
+    """``remat`` "full" and "dots" recompute MoE, q/k-norm and RG-LRU layers as they
     do the others: the loss (aux included) and every gradient bitwise
     "none"'s on the CPU, which recomputes the same ops in the same order."""
     _, port, _, params = _pair(arch, "O0")

@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 HD = 64  # SmolLM-135M's head width
 SCALE = HD**-0.5
@@ -217,3 +218,30 @@ def test_gf_bound_counts_passes_of_8_rows_and_7_k():
     per_col = sum(3 * kc + (4 if rows > 4 else 2) + (kc + rows) / 2 + 1
                   for rows in (8, 5) for kc in (7, 7, 2))
     assert got["gf_int_ops"] == pytest.approx(100 * per_col)
+
+
+def test_flash_bound_counts_the_window_at_recurrentgemma_forward():
+    """RecurrentGemma's local attention in phase 16b's forward, (2, 4096, 10,
+    1, 256) with window 2048: row i sees min(i + 1, 2048) keys, 1.259e8
+    pairs where the causal mask alone leaves 1.678e8; 2 x (256 + 256) FLOP
+    a pair."""
+    cs = _chip_smoke()
+    b, t, h, kh, hd, window = cs.RG_FLASH_SHAPE
+    assert (b, t, h, kh, hd, window) == (2, 4096, 10, 1, 256, 2048)
+    q = torch.empty((b, t, h, hd), device="meta")
+    k = torch.empty((b, t, kh, hd), device="meta")
+    causal = cs.flash_bound(q, k)
+    got = cs.flash_bound(q, k, window=window)
+    assert causal["bound_pairs"] == b * h * t * (t + 1) // 2 == 167_813_120
+    per_row = window * (window + 1) // 2 + (t - window) * window
+    assert got["bound_pairs"] == b * h * per_row == 125_849_600
+    assert got["bound_flop"] == 1024 * 125_849_600 == 128_869_990_400
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(0.781, abs=5e-4)
+    assert got["bound_tf32_ms"] == pytest.approx(0.260, abs=5e-4)
+    assert got["bound_gb"] == pytest.approx(0.184549376)
+    assert got["bound_bytes_ms"] == pytest.approx(0.0551, abs=1e-4)
+    # a window at least T long, or None, is the causal count
+    assert cs.flash_bound(q, k, window=t) == causal
+    # a window of 1 sees the diagonal alone
+    assert cs.flash_bound(q, k, window=1)["bound_pairs"] == b * h * t

@@ -26,6 +26,7 @@ import torch
 
 import repro.storage.cache as ref_cache
 import repro_torch.storage.cache as cache
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 MB = float(2**20)
 LAM = np.asarray([0.09, 0.07, 0.04, 0.03])

@@ -40,6 +40,7 @@ from repro_torch.checkpoint.planner import flatten_with_keys
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.lm import Model
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 PI_ATOL = 2e-3  # flat-valley stops (ROADMAP.md §C)
 PLAN_KW = dict(group_mb=0.01, chunk_mb=0.004, theta=0.05)  # tests/test_checkpoint.py

@@ -36,6 +36,7 @@ from repro_torch.storage import (
     rs,
     tahoe_testbed,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 BACKENDS = ("auto", "ref", "bitplane")
 NK = [(5, 4), (7, 4), (9, 6), (12, 7), (14, 10)]

@@ -32,6 +32,7 @@ from repro_torch.core.objectives import (
 )
 from repro_torch.storage import GeoFabric, simulate_fleet, tahoe_testbed
 from repro_torch.storage import cluster as cluster_mod
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL = 1e-5
 M = 12
@@ -186,6 +187,46 @@ def test_optimal_z_scale_is_global_not_per_row():
     z_ref = ref_lb.optimal_z(*(jnp.asarray(x) for x in (pi, eq, varq)))
     np.testing.assert_array_equal(z.numpy(), np.asarray(z_ref))
     assert z[0] == z[1] == -64.0 * (1000.0 + 1.0 + 1.0)
+
+
+def test_bracket_fixed_compares_bits():
+    a = torch.tensor([1.0, 0.0, float("nan")])
+    assert proj.bracket_fixed(a[:2], a[:2], a[:2].clone(), a[:2].clone())
+    assert not proj.bracket_fixed(a[:2], a[:2], a[:2] + 1e-7, a[:2])
+    assert not proj.bracket_fixed(a[:2], a[:2], torch.tensor([1.0, -0.0]), a[:2])
+    assert not proj.bracket_fixed(a, a, a.clone(), a.clone())  # a NaN is never fixed
+    assert not proj.bracket_fixed(a.to("meta"), a.to("meta"), a.to("meta"), a.to("meta"))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bisections_stop_at_their_fixed_point_bit_for_bit(seed, moments, monkeypatch):
+    """``optimal_z``, the projection, the tail bound's golden-section search
+    and a whole JLCM solve on host tensors give the same bits whether they
+    stop at the bracket's fixed point or run every step."""
+    pi, k, lam = _feasible_pi(seed, 24)
+    rng = np.random.default_rng(seed + 10)
+    v = torch.from_numpy(rng.standard_normal((24, M)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((24, M)) < 0.8)
+    mask[:, :8] = True
+    pi_t, k_t, lam_t = map(torch.from_numpy, (pi, k, lam))
+    mom = moments[1]
+    eq, varq = q.pk_sojourn_moments(q.node_arrival_rates(pi_t, lam_t), mom)
+    deadline = torch.full((24,), 3.0) * eq.max()
+    prob = JLCMProblem(lam=lam_t * 50, k=torch.clamp(k_t, 2, 7), moments=mom,
+                       cost=tahoe_testbed(device="cpu").cost, theta=0.5)
+
+    def run():
+        sol = solve(prob, max_iters=60)
+        return (lb.optimal_z(pi_t, eq[None], varq[None]),
+                proj.project_capped_simplex(v, k_t, mask),
+                lb.tail_probability_bounds(pi_t, eq[None], varq[None], deadline),
+                sol.pi, torch.as_tensor(sol.latency_tight), torch.as_tensor(sol.cost))
+
+    stopped = run()
+    monkeypatch.setattr(proj, "bracket_fixed", lambda *args: False)
+    monkeypatch.setattr(lb, "bracket_fixed", lambda *args: False)
+    for got, want in zip(stopped, run()):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

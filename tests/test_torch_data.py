@@ -19,6 +19,7 @@ import torch
 
 from repro.data.pipeline import SyntheticLM as RefSyntheticLM
 from repro_torch.data import SyntheticLM
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 VOCAB, SEQ, BATCH = 49152, 256, 256
 

@@ -12,6 +12,7 @@ import repro_torch.storage as PS
 from repro_torch import diag
 from repro_torch.core import JLCMProblem, solve
 from repro_torch.serving import AdaptiveReplanner, EwmaMomentEstimator
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 LAM = np.asarray([0.030, 0.020, 0.015, 0.012])
 K4 = np.asarray([4.0, 4.0, 6.0, 6.0])

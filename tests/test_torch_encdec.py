@@ -34,6 +34,7 @@ from repro_torch.models import layers, stack
 from test_torch_archs import (B, _batch, _close, _pair, _tree_close,
                               decode_tracks_teacher_forcing, serve_path_matches)
 from test_torch_archs_loss import grads_match
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ARCH = "seamless-m4t-medium"
 CFG = ref_smoke_config(ARCH)

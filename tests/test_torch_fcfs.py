@@ -15,6 +15,7 @@ import torch
 from repro.kernels.fcfs_queue import fcfs_scan as ref_fcfs_scan
 from repro_torch.kernels import fcfs_queue
 from repro_torch.kernels.fcfs_queue import fcfs_scan, fcfs_scan_plain
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _workload(seed, s, n, m, p_empty=0.1):

@@ -42,6 +42,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.scheduling import madow_sample
 from repro_torch.storage import homogeneous_cluster, simulate, tahoe_testbed
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 INV_LAMBDA = (60, 40, 32, 24, 18, 14, 12, 11, 10.5, 10, 9.5, 9)  # fig7's rates
 N7, K7, MU = 7, 4, 1 / 13.9

@@ -28,6 +28,7 @@ import repro_torch.core.baselines as base
 import repro_torch.core.queueing as q
 import repro_torch.core.scheduling as sched
 import repro_torch.storage.cluster as cluster
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 M = 12
 MU = 1.0 / 13.9  # the paper's measured service rate (Fig. 6)

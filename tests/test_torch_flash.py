@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain,
 )
 from repro_torch.models.attention_opt import chunked_sdpa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _qkv(seed, b, tq, h, kh, hd, tk=None):

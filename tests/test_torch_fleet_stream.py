@@ -32,6 +32,7 @@ import repro.storage.simulator as ref_sim
 import repro_torch.storage as PS
 from repro_torch.storage.simulator import SimDraws
 from test_torch_segments import flips_of
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 M = 12
 MB = float(2**20)

@@ -31,6 +31,7 @@ import repro_torch.core as P
 import repro_torch.storage as PS
 from repro_torch.core.scheduling import madow_sample
 from test_torch_slice import _port_draws, _ref_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 M = 12
 LAM = np.asarray([0.036, 0.028, 0.016, 0.012], np.float32)  # fleet_scale.py

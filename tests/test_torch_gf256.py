@@ -33,6 +33,7 @@ from repro_torch.kernels import (
     rs_encode,
 )
 from repro_torch.storage import gf256
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # the sweep of tests/test_kernels.py
 SHAPES = [

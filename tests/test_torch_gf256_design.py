@@ -36,6 +36,7 @@ import repro.storage.gf256 as ref_gf
 from repro.kernels import gf256_matmul_pallas, gf256_matmul_pallas_batched
 from repro.kernels import gf256_matmul_ref as ref_matmul
 from repro_torch.kernels.gf256_matmul import packed_product_tables
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 GRAN, ROWS, KC, COPIES = 16, 8, 7, 16  # the source's constants
 TABLE_BYTES = 256 * COPIES * 8

@@ -36,6 +36,7 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.models import params_from_numpy
 from repro_torch.models import layers
 from repro_torch.models.attention_opt import chunked_sdpa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CFG = ref_smoke_config("deepseek-v3-671b")
 # the reference's unrolled tiles, traced once a shape rather than run op by op

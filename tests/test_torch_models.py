@@ -9,6 +9,7 @@ atol 1e-4 (30-odd float32 matmuls deep, summed in another order).
 On the CPU the chunked path runs kernel B4's plain twin.
 """
 import dataclasses
+import typing
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from repro_torch.configs.registry import ARCHS, get_config, get_smoke_config
 from repro_torch.launch.steps import OPT_LEVELS, build_model
 from repro_torch.models import Model, params_from_numpy
 from repro_torch.models import layers
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-4
 
@@ -34,7 +36,13 @@ def _close(port, ref, atol):
 
 PORTED = ("smollm-135m", "starcoder2-15b", "phi4-mini-3.8b", "gemma3-27b",
           "qwen3-moe-30b-a3b", "deepseek-v3-671b", "qwen2-vl-2b", "seamless-m4t-medium",
-          "rwkv6-1.6b")
+          "recurrentgemma-2b", "rwkv6-1.6b")
+
+
+def test_every_registered_arch_is_ported():
+    from repro.configs.registry import ARCHS as REF_ARCHS
+
+    assert sorted(ARCHS) == sorted(REF_ARCHS) == sorted(PORTED)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -47,15 +55,10 @@ def test_configs_and_opt_levels_equal_the_reference(arch):
     assert OPT_LEVELS == REF_OPT_LEVELS
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in PORTED])
-def test_unported_archs_raise_naming_a20(arch):
-    with pytest.raises(KeyError, match="A20"):
-        get_config(arch)
-
-
-def test_unknown_arch_raises():
+@pytest.mark.parametrize("get", [get_config, get_smoke_config])
+def test_unknown_arch_raises(get):
     with pytest.raises(KeyError, match="unknown arch"):
-        get_smoke_config("no-such-model")
+        get("no-such-model")
 
 
 def test_rope_and_rmsnorm_match():
@@ -190,13 +193,15 @@ def test_init_draws_the_reference_distributions():
     assert torch.equal(params["ln_f"]["scale"], torch.ones(cfg.d_model))
 
 
-@pytest.mark.parametrize(
-    "change",
-    [dict(period=(kind,)) for kind in ("rglru",)],
-)
-def test_unported_layer_kinds_and_options_raise(change):
-    cfg = dataclasses.replace(SMOKE, **change)
-    with pytest.raises(NotImplementedError, match="A20"):
+def test_model_accepts_every_kind_of_the_reference_and_no_other():
+    from repro.models.config import LayerKind as RefLayerKind
+    from repro_torch.models.stack import PORTED_KINDS
+
+    assert set(typing.get_args(RefLayerKind)) <= set(PORTED_KINDS)
+    for kind in PORTED_KINDS:
+        Model(cfg=dataclasses.replace(SMOKE, period=(kind,)), device="cpu")
+    cfg = dataclasses.replace(SMOKE, period=("no-such-kind",))
+    with pytest.raises(NotImplementedError, match="no-such-kind"):
         Model(cfg=cfg, device="cpu")
 
 

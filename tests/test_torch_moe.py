@@ -25,6 +25,7 @@ from repro.models import Model as RefModel
 from repro_torch.models import moe, params_from_numpy
 from repro_torch.models.config import MoEConfig
 from repro_torch.tree import flatten_with_keys
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SMOKE = ref_smoke_config("qwen3-moe-30b-a3b")
 

@@ -33,6 +33,7 @@ from repro.storage import tahoe_testbed as ref_testbed
 from repro_torch.core.scheduling import madow_sample
 from repro_torch.storage import simulate, tahoe_testbed
 from test_torch_slice import _port_draws, _ref_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 M = 12
 RTOL = 1e-5

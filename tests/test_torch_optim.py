@@ -22,6 +22,7 @@ import repro.optim as RO
 import repro_torch.optim as PO
 from repro_torch.models import params_from_numpy
 from repro_torch.tree import flatten_with_keys
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL = 1e-6
 SHAPES = {"embed": (6, 4), "stack": [(4, 5), (5,)], "head": ((3, 4), (2, 2, 2))}

@@ -28,6 +28,7 @@ import repro_torch.serving as PSV
 import repro_torch.storage as PS
 from repro_torch.serving.router import _pow2
 from test_torch_segments import seg_draws, stack_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 MB = 1024 * 1024
 LAM = np.asarray([0.030, 0.020, 0.015, 0.012])  # tests/test_replan_batch.py

@@ -19,6 +19,7 @@ from test_torch_replan import (
     K4, LAM, N_REQ, PI_ATOL, _assert_replans_agree, fabrics,  # noqa: F401 (fixture)
 )
 from test_torch_segments import seg_draws, stack_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 # ---------------------------------------------------- HierarchicalReplanner

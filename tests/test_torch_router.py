@@ -25,6 +25,7 @@ import repro_torch.serving as PSV
 import repro_torch.storage as PS
 from repro.storage.simulator import generate_workload
 from repro_torch.serving.router import ServingDraws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 MU = [1.0, 1.2, 0.8, 1.5, 0.9, 1.1]  # tests/test_serving.py, benchmarks/serving_hedge.py
 RATES = np.asarray([0.5, 0.8], np.float32)

@@ -43,6 +43,7 @@ from repro_torch.tree import flatten_with_keys
 from test_torch_archs import (B, _batch, _close, _jax, _pair, _tree_close,
                               decode_tracks_teacher_forcing, serve_path_matches)
 from test_torch_archs_loss import _ref_keyed, grads_match
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ARCH = "rwkv6-1.6b"
 CFG = ref_smoke_config(ARCH)

@@ -15,10 +15,16 @@ reference, on the CPU.
   the reference's up to the first flipped Madow set (``flips_of``), and
   with no flip the outcome's statistics are the reference's exactly.
 
+* The closed loops (``node-failure``, ``cache-outage``, ``hotspot-drift``,
+  ``premium-burst``, the hierarchical drift and ``geo-client-shift``), each
+  in both packages on the reference's draws, held by
+  ``assert_loop_tracks_reference`` (see the section's note), with the
+  orderings and gates of ``tests/test_scenarios.py`` and
+  ``benchmarks/scenario_suite.py``. They are in this module, which has many
+  tests, so that pytest-xdist (which hands out modules with the most tests
+  first) starts their minutes of solver work early rather than last.
+
 The reference runs on its ``ref`` FCFS backend; no test launches a kernel.
-The helpers here (``ref_schedule_draws``, ``ref_rollout_draws``,
-``closed_loop_pair``, ``assert_loop_tracks_reference``) serve the
-closed-loop files ``test_torch_scenarios_*.py`` too.
 """
 import contextlib
 import dataclasses
@@ -36,19 +42,10 @@ import repro_torch.scenarios as PSC
 import repro_torch.scenarios.engine as port_engine
 import repro_torch.storage as PS
 from test_torch_segments import assert_stream_matches, flips_of, seg_draws, stack_draws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 M = 12
 PI_ATOL = 2e-3  # flat-valley stops (ROADMAP.md §C)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The solver's many small CPU ops run about a fifth faster on one
-    thread; the module's thread count is restored after it."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -507,3 +504,235 @@ def test_seeded_generator_draws_are_reproducible(name, clusters):
     assert first.row() == again.row()
     assert not np.array_equal(first.seg_mean, other.seg_mean)
     assert np.isfinite(first.mean) and first.seg_mean.shape == (spec.n_segments,)
+
+
+# ------------------------------------------------------------ closed loops
+#
+# Each closed loop runs in both packages on the reference's draws (segments
+# and rollouts alike) through ``closed_loop_pair`` and is held by
+# ``assert_loop_tracks_reference``: the replan count, the telemetry, the
+# first replan's choice and plan, each segment's latencies bitwise until
+# the first flipped Madow set and its clients' mean within a flip-scaled
+# tolerance after it (a plan that differs in the last bit can flip a set
+# and move later replans, ``ROADMAP.md`` §C), beside the orderings the
+# reference's own tests assert.
+#
+# node-failure scaled 0.4 (tests/test_scenarios.py's size): the dense
+# AdaptiveReplanner with rollouts from the live carry, beside the static and
+# oblivious policies on the same draws.
+
+
+@pytest.fixture(scope="module")
+def failure(clusters):
+    spec_r, spec_p = ref_spec("node-failure", 0.4), port_spec("node-failure", 0.4)
+    pair = closed_loop_pair(spec_r, spec_p, clusters)
+    pi0, placement0 = _ref_initial(spec_r, clusters[0])
+    draws = ref_schedule_draws(spec_r, spec_r.requests_per_segment)
+    open_loop = {p: PSC.run_scenario(spec_p, p, cluster=clusters[1], draws=draws,
+                                     pi0=None if p == "oblivious" else pi0,
+                                     placement0=placement0)
+                 for p in ("static", "oblivious")}
+    return pair, {**open_loop, "adaptive": pair["got"]}
+
+
+def test_node_failure_adaptive_tracks_reference(failure):
+    pair, _ = failure
+    assert pair["got"].seg_mean.shape == (8,)
+    assert_loop_tracks_reference(pair)
+
+
+def test_node_failure_orderings(failure):
+    """tests/test_scenarios.py::TestClosedLoop's claims on the port."""
+    _, out = failure
+    for o in out.values():
+        assert np.isfinite(o.mean) and np.isfinite(o.p99)
+    assert out["adaptive"].mean < out["oblivious"].mean
+    assert out["adaptive"].mean < out["static"].mean
+    assert out["adaptive"].degraded_frac < 0.01 and out["static"].degraded_frac > 0.1
+    assert out["adaptive"].replans > 0 and out["static"].replans == 0
+    assert out["static"].solve_iters == () and out["static"].row()["solve_iters"] == ""
+
+
+# cache-outage scaled 0.2, at least 300 requests a segment: the adaptive
+# loop feeds its rate estimator miss traffic, inverts it through the deployed
+# TTLs, re-derives TTLs, is forced to re-plan when the hot tier goes down and
+# comes back, and holds the storm plan through the outage; held with the hot
+# tier's hit share and storage cost, and with benchmarks/scenario_suite.py's
+# gate (adaptive below the cache-blind static baseline on mean and windowed
+# p99, at no more storage cost).
+
+
+@pytest.fixture(scope="module")
+def outage(clusters):
+    spec_r, spec_p = ref_spec("cache-outage", 0.2, 300), port_spec("cache-outage", 0.2, 300)
+    pair = closed_loop_pair(spec_r, spec_p, clusters)
+    _, placement0 = _ref_initial(spec_r, clusters[0])
+    draws = ref_schedule_draws(spec_r, spec_r.requests_per_segment)
+    blind = PSC.run_scenario(spec_p, "static", cluster=clusters[1], placement0=placement0,
+                             cache_aware=False, draws=draws)
+    want_blind = RSC.run_scenario(spec_r, "static", seed=0, placement0=placement0,
+                                  cache_aware=False)
+    return pair, blind, want_blind
+
+
+def test_cache_outage_tracks_reference(outage):
+    pair, _, _ = outage
+    assert_loop_tracks_reference(pair)
+    got, want = pair["got"], pair["want"]
+    # one replan a segment boundary outside the outage, the forced one at each
+    # hot-tier flip, none inside it (the storm plan is held)
+    assert got.replans == 6
+    np.testing.assert_allclose(got.hit_frac, want.hit_frac, rtol=1e-3)
+    np.testing.assert_allclose(got.storage_cost, want.storage_cost, rtol=1e-3)
+
+
+def test_cache_blind_baseline_and_gate(outage):
+    pair, blind, want_blind = outage
+    ada = pair["got"]
+    assert blind.policy == want_blind.policy == "static-cacheblind"
+    np.testing.assert_allclose(blind.mean, want_blind.mean, rtol=1e-2)
+    np.testing.assert_allclose(blind.storage_cost, want_blind.storage_cost, rtol=1e-3)
+    assert ada.mean < blind.mean and ada.p99_windowed < blind.p99_windowed
+    assert ada.storage_cost <= blind.storage_cost
+    assert 0.0 < ada.hit_frac < 1.0
+
+
+# hotspot-drift scaled 0.4 (tests/test_scenarios.py's TestSolverTelemetry
+# size), adaptive and static, with the telemetry the reference's test asserts.
+
+
+@pytest.fixture(scope="module")
+def drift(clusters):
+    spec_r, spec_p = ref_spec("hotspot-drift", 0.4), port_spec("hotspot-drift", 0.4)
+    pair = closed_loop_pair(spec_r, spec_p, clusters)
+    pi0, placement0 = _ref_initial(spec_r, clusters[0])
+    static = PSC.run_scenario(spec_p, "static", cluster=clusters[1], pi0=pi0,
+                              placement0=placement0,
+                              draws=ref_schedule_draws(spec_r, spec_r.requests_per_segment))
+    return pair, static
+
+
+def test_hotspot_drift_tracks_reference(drift):
+    pair, _ = drift
+    assert_loop_tracks_reference(pair)
+
+
+def test_adaptive_records_iters_and_walls(drift):
+    pair, static = drift
+    out = pair["got"]
+    assert out.replans > 0
+    assert len(out.solve_iters) == len(out.solve_walls) == len(out.rollout_walls) == out.replans
+    assert all(int(v) >= 1 for v in out.solve_iters) and all(v > 0.0 for v in out.solve_walls)
+    row = out.row()
+    assert row["solve_iters"].count("|") == out.replans - 1
+    assert row["solve_wall_ms"].count("|") == out.replans - 1
+    assert static.replans == 0 and static.solve_iters == () and static.solve_walls == ()
+    assert static.row()["solve_iters"] == ""
+    assert np.isfinite(out.mean) and np.isfinite(static.mean)
+
+
+# premium-burst scaled 0.15, at least 250 requests a segment
+# (tests/test_scenarios.py's TestMultiTenant size): the composed objective
+# (class weights and a premium tail deadline) in every solve and rollout
+# score. The reference fails two of TestMultiTenant's claims at this size
+# (test_weighted_plan_protects_premium_class,
+# test_adaptive_tracks_burst_no_worse_than_oblivious; ROADMAP.md §C), so the
+# port is held to the reference's per-class outputs, not to those claims.
+
+
+@pytest.fixture(scope="module")
+def burst(clusters):
+    spec_r = ref_spec("premium-burst", 0.15, 250)
+    spec_p = port_spec("premium-burst", 0.15, 250)
+    return closed_loop_pair(spec_r, spec_p, clusters)
+
+
+def test_premium_burst_tracks_reference(burst):
+    assert_loop_tracks_reference(burst)
+
+
+def test_class_stats_match_reference(burst):
+    got, want = burst["got"], burst["want"]
+    assert got.class_mean.shape == got.class_p99.shape == (2,)
+    assert np.isfinite(got.class_mean).all() and np.isfinite(got.class_p99).all()
+    assert "class_means" in got.row() and "class_p99s" in got.row()
+    if got.mean == want.mean:  # the same stream end to end
+        np.testing.assert_array_equal(got.class_mean, want.class_mean)
+        np.testing.assert_array_equal(got.class_p99, want.class_p99)
+    else:
+        np.testing.assert_allclose(got.class_mean, want.class_mean, rtol=5e-2)
+
+
+# hotspot_drift_hierarchical at r = 2000 and 800 requests a segment
+# (tests/test_scenarios.py's size; HierarchicalReplanner: full re-solves on
+# moment drift, incremental ones otherwise) and geo-client-shift scaled 0.2
+# (GeoAdaptiveReplanner with geo rollouts), with the orderings the
+# reference's tests and benchmarks/scenario_suite.py assert. The geo loop
+# parts from the reference's at its third replan: the geo solves stop in a
+# flat valley (pi 2.3e-2 apart there, ROADMAP.md §C), and Madow sets flip
+# from then on (2, 85 and 6 in segments 3-5, each segment's mean within 1e-2
+# a flip of the reference's). The sixth replan picks the other candidate, so
+# segment 6 is not compared by mean; the seventh picks the reference's
+# again, and segment 7 is held.
+
+
+@pytest.fixture(scope="module")
+def hierarchical(clusters):
+    ref = RSC.hotspot_drift_hierarchical(r=2000, requests_per_segment=800)
+    port = PSC.hotspot_drift_hierarchical(r=2000, requests_per_segment=800)
+    pair = closed_loop_pair(ref[0], port[0], clusters, hierarchy=(ref[1], port[1]))
+    draws = ref_schedule_draws(ref[0], 800)
+    static = PSC.run_scenario(port[0], "static", seed=0, cluster=clusters[1],
+                              hierarchy=port[1], draws=draws)
+    want_static = RSC.run_scenario(ref[0], "static", seed=0, hierarchy=ref[1])
+    return pair, static, want_static
+
+
+def test_hierarchical_loop_tracks_reference(hierarchical):
+    pair, static, want_static = hierarchical
+    got, want = pair["got"], pair["want"]
+    assert got.resolved_counts == want.resolved_counts
+    assert_loop_tracks_reference(pair)
+    # the static plans are the two packages' own cluster solves
+    np.testing.assert_allclose(static.mean, want_static.mean, rtol=1e-2)
+
+
+def test_hierarchical_orderings_and_telemetry(hierarchical):
+    """tests/test_scenarios.py::TestHierarchicalScenario's claims."""
+    pair, static, _ = hierarchical
+    o = pair["got"]
+    assert np.isfinite(o.mean) and np.isfinite(o.p99) and np.isfinite(static.mean)
+    assert o.mean < static.mean
+    assert o.replans > 0
+    assert len(o.solve_iters) == len(o.solve_walls) == len(o.resolved_counts) == o.replans
+    assert o.rollout_walls == ()
+    row = o.row()
+    assert "resolved_clusters" in row and row["solve_iters"].count("|") == o.replans - 1
+
+
+@pytest.fixture(scope="module")
+def geo(clusters):
+    spec_r, spec_p = ref_spec("geo-client-shift", 0.2, 300), port_spec("geo-client-shift", 0.2, 300)
+    pair = closed_loop_pair(spec_r, spec_p, clusters)
+    pi0, _ = _ref_initial(spec_r, clusters[0])
+    draws = ref_schedule_draws(spec_r, spec_r.requests_per_segment)
+    static = PSC.run_scenario(spec_p, "static", cluster=clusters[1], pi0=pi0, draws=draws)
+    return pair, static
+
+
+def test_geo_loop_tracks_reference(geo):
+    pair, _ = geo
+    assert_loop_tracks_reference(pair)
+    got, want = pair["got"], pair["want"]
+    assert got.site_mean.shape == want.site_mean.shape == (4,)
+    assert len(got.rollout_walls) == got.replans
+
+
+def test_geo_orderings(geo):
+    """scenario_suite.py's geo-client-shift gate: replans, and adaptive's
+    mean below the static geo-oblivious plan's."""
+    pair, static = geo
+    ada = pair["got"]
+    assert ada.replans > 0 and static.replans == 0
+    assert ada.mean < static.mean
+    assert np.isfinite(ada.site_mean).all() and np.isfinite(static.site_mean).all()

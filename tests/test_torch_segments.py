@@ -35,6 +35,7 @@ import repro_torch.storage as PS
 from repro_torch.core.scheduling import madow_sample
 from repro_torch.storage.simulator import SimDraws
 from test_torch_slice import _ref_madow_on_u
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 M = 12
 MB = float(2**20)

@@ -24,6 +24,7 @@ from repro_torch.core import exponential_moments
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.launch.serve import serve
 from repro_torch.serving import ReplicaPool, Router
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 MU = np.array([1.3, 1.1, 0.8, 0.5], np.float32)

@@ -41,6 +41,7 @@ from repro_torch.storage import (
     simulate_fleet,
     tahoe_testbed,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 M = 12
 

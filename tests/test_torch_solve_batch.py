@@ -47,6 +47,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.jlcm import max_ec_problem, max_ec_report
 from repro_torch.storage import tahoe_testbed
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 M = 12
 EPS = 1e-5

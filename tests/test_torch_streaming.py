@@ -36,6 +36,7 @@ from repro_torch.storage import (
     simulate_latency_cdf,
     tahoe_testbed,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL = 1e-5
 EXACT = ("count", "hist", "minv", "maxv")

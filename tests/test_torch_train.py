@@ -41,6 +41,7 @@ from repro_torch.launch import train as train_mod
 from repro_torch.models import params_from_numpy
 from repro_torch.models.attention_opt import chunked_softmax_xent
 from repro_torch.tree import flatten_with_keys, tree_leaves, tree_unflatten
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SMOKE = ref_smoke_config("smollm-135m")
 CONFIGS = {
