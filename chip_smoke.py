@@ -97,7 +97,7 @@ Phases, each raising on failure:
    beside the encode and decode walls.
 6. Serving: ``serve("smollm-135m", smoke=False)``, SmolLM-135M at full
    width and depth in float32 with random weights from a seed, 4 replicas
-   planned by JLCM, 8 batches of 4 prompts of 2016 tokens routed by Madow
+   planned by JLCM, 2 batches of 4 prompts of 2016 tokens routed by Madow
    sampling, each prefilled (B4 in all 30 layers) and decoded greedily for
    32 tokens. Every prefill must launch B4 exactly 30 times; every B4 call
    of the path is held against the plain twin at atol 2e-5; a prefill with
@@ -236,10 +236,13 @@ Phases, each raising on failure:
    the plain twin bitwise and timed; B2's share of each wall is printed.
 12. Training (``repro_torch.launch.train`` and ``launch/steps.py``):
    12a. ``examples/train_lm.py``'s flow at full width: ``train("smollm-135m",
-       smoke=False)``, float32, batch 8 x seq 64, lr 3e-3 on the cosine
-       schedule, for TRAIN's 600 steps, the whole TrainState (parameters
-       and both AdamW moments, 1.61 GB) planned by JLCM as 31 files and
-       saved through the EC store every 200 steps; the first group's first
+       smoke=False)`` on the (1, 1) mesh (each step through
+       ``jit_train_step``; a save gathers the state, a restore places it),
+       cut in depth to ``TRAIN_DEPTH``, 8 of 30 layers (DTensor's host cost
+       sets a step's wall), float32, batch 8 x seq 64, lr 3e-3 on
+       the cosine schedule, for TRAIN's 600 steps, the whole TrainState
+       (parameters and both AdamW moments, 0.68 GB) planned by JLCM as 25
+       files and saved through the EC store every 200 steps; the first group's first
        storage node fails at step 500, after the last save; then a
        ``resume=True`` run restores step 400 from the degraded store and
        trains to 600, saving step 400 again. The example's assertion in both
@@ -262,7 +265,7 @@ Phases, each raising on failure:
    registered configs), float32, random weights from a seed, at O3 (B4 in
    every prefill and forward):
    13a. ``serve("phi4-mini-3.8b", smoke=False)``: all 32 layers (3.84e9
-       parameters, 15.3 GB), phase 6's load (4 replicas, 8 batches of 4
+       parameters, 15.3 GB), phase 6's load (4 replicas, 2 batches of 4
        prompts of 2016 tokens, 32 greedy tokens). Every prefill must launch
        B4 once a layer; every B4 call is held to the plain twin as it is
        made (keeping them all would take 76 GB); routes inside pi's
@@ -302,9 +305,10 @@ Phases, each raising on failure:
        (decode never recomputes them); B4 timed on the path's
        (2, 2016, 16, 16, 64) beside its bound (0.101 ms) and
        ``scaled_dot_product_attention``.
-   14b. ``serve("rwkv6-1.6b", smoke=False)`` (24 layers, d 2048, head size
-       64, d_ff 7168, vocab 65 536 untied; 1.58e9 parameters) with 2 of
-       phase 6's 8 batches; the path has no kernel of B1-B4 (its WKV recurrence is a
+   14b. ``serve("rwkv6-1.6b", smoke=False)`` cut in depth to ``RWKV_DEPTH``,
+       12 of 24 layers (d 2048, head size 64, d_ff 7168, vocab 65 536
+       untied; the cut taken when phase 17 brought the script past 850 s)
+       with phase 6's 2 batches; the path has no kernel of B1-B4 (its WKV recurrence is a
        loop over tokens, as the reference's ``lax.scan`` has no Pallas
        kernel), so no prefill may launch one; routes inside pi's support.
        Then 14a's teacher forcing on 2 x 2048 tokens, the WKV loop's share
@@ -330,6 +334,24 @@ Phases, each raising on failure:
    the path's (2, 2016, 128, 128) x 192 / 128 beside its bound (2.019 ms),
    the plain twin and ``scaled_dot_product_attention``; one MoE layer
    timed alone; the peak memory and the host syncs.
+17. The multi-device layer on the card's world-1 NCCL (1, 1) ('data',
+   'model') mesh (``make_local_mesh``): the same DTensor code as on a
+   mesh of many ranks, every sharded step held to the unsharded one from
+   the same state. 17a: SmolLM-135M at full width and depth, float32, O2
+   (batch pins, B4 on local blocks, chunked CE), 3 ``jit_train_step`` steps
+   of 2 x 2048 tokens, each against ``make_train_step`` from the state the
+   sharded step started from: loss and grad norm at rtol 1e-6, every
+   parameter and AdamW moment leaf within 1e-6 of its largest entry (2e-6
+   for v). 17b: ``jit_prefill_step`` at O3 on 4 x 2016 tokens
+   and 32 ``jit_decode_step`` steps against the unsharded prefill and
+   decode, logits at atol 1e-5. 17c: Qwen3-MoE-30B-A3B at full width, 4 of
+   48 layers, built on the mesh so that its MoE layers run the
+   expert-parallel island: a forward of 2 x 2016 (the ZeRO path), the
+   sharded prefill and 32 decode steps at batch 2 (the tiny path) against
+   ``ep=None`` from the same parameters at atol 2e-5, the top-k expert
+   sets compared token by token. Every B4 call is held to its twin as it
+   is made; each step's wall is printed sharded and unsharded (DTensor's
+   host cost per op), with the peak memory and the NCCL version.
 
 The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
 the card could take for the work: each input read once and each output
@@ -347,7 +369,7 @@ The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 15 (4b included) every launch count is set to 0 just before
+In phases 3 to 17 (4b included) every launch count is set to 0 just before
 each main-path call (simulator, encode, decode, prefill, serving simulation,
 replan, scenario run, checkpoint save and restore, training run, loss and
 gradients, forward) and read just after; each call must have launched its
@@ -435,8 +457,22 @@ from repro_torch.kernels.gf256_matmul import (  # noqa: E402
 from repro_torch.kernels.gf256_matmul import load_library as load_gf256  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.launch.steps import build_model, loss_and_grads  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    TrainState,
+    build_model,
+    gather,
+    jit_decode_step,
+    jit_prefill_step,
+    jit_train_step,
+    loss_and_grads,
+    make_train_step,
+    place,
+)
+from repro_torch.distributed.sharding import param_shardings  # noqa: E402
+from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
 from repro_torch.models import lm, moe, rglru, rwkv6  # noqa: E402
 from repro_torch.models.stack import _mlp_kind  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -512,8 +548,10 @@ TF32_OPS_PER_S = 495e12  # tensor cores, dense
 TF32_PASSES = 3  # B4's float32 path: small*big + big*small + big*big
 FLASH_SHAPE = (4, 2016, 9, 3, 64)  # SmolLM-135M's prefill in phase 6: (B, T, H, KH, hd)
 # phase 6: SmolLM-135M serving 4 replicas; prompt + generation fill its
-# published 2048-token context
-SERVE = dict(n_replicas=4, batch=4, prompt_len=2016, gen_len=32, n_batches=8, hedge=0)
+# published 2048-token context. serve() runs on the (1, 1) mesh, where a
+# decode step costs DTensor's host time (~230 ms at SmolLM on an H100), so
+# phases 6, 13a, 14b and 16a serve 2 batches each
+SERVE = dict(n_replicas=4, batch=4, prompt_len=2016, gen_len=32, n_batches=2, hedge=0)
 # phase 4b: the paper's §V figures, as benchmarks/fig{6,7,9,10,11,12,13}*.py
 # run them (their catalog size, request counts, rates, thetas and solver
 # settings), each figure's generator seeded with its benchmark's key
@@ -604,6 +642,10 @@ CKPT_SEED, CKPT_THETA, CKPT_CHUNK_DIV, CKPT_READ_RATE = 0, 0.5, 4, 1 / 600.0
 # restore reads parity), and the resume restores step 400 and saves it once
 # more (train.py replays the saved step)
 TRAIN = dict(steps=600, ckpt_every=200, fail_node_at=500, batch=8, seq=64, lr=3e-3)
+# train() runs on the (1, 1) mesh, where DTensor's host cost per op sets the
+# step's wall; 12a cuts SmolLM-135M's depth to TRAIN_DEPTH of its 30 layers
+# (by patching train()'s get_config for the call) to keep the script in time
+TRAIN_DEPTH = 8
 TRAIN_LOSS_DROP = 0.5  # examples/train_lm.py's assertion, in both runs
 # 12b: one batch of SmolLM-135M's published 2048-token context, batch 2,
 # through O0 (naive attention, dense CE), O2 (B4 under autograd, chunked CE)
@@ -632,15 +674,13 @@ GQA_FLASH_CASES = [(96, 4, 2, None), (130, 6, 2, 40), (77, 24, 4, None), (200, 1
 # (2, 512, 1024) x 0.1, as tests/test_models.py:26-29 builds them: a forward,
 # a prefill of 2016 tokens and 32 decode steps fed the sequence's own next
 # tokens, each step held to the forward at GQA_RTOL / GQA_ATOL. 14b serves
-# RWKV6-1.6B through serve() with RWKV_SERVE's load, then runs 14a's teacher
+# RWKV6-1.6B through serve() with SERVE's load, then runs 14a's teacher
 # forcing on 2 x 2048 tokens; its launches are counted on two short prefills
 # (RWKV_PROFILE_LENS tokens) with torch.profiler.
 ENCDEC_FLASH_SHAPE = (2, 2016, 16, 16, 64)  # SeamlessM4T's decoder prefill: (B, T, H, KH, hd)
 ENCDEC_ENC_SCALE = 0.1
 RWKV_PROFILE_LENS = (16, 32)
-# 14b serves 2 of phase 6's 8 batches: each RWKV6 prefill is its WKV loop,
-# ~5.5 s a 4 x 2016 batch, and 8 of them took 77 s of the script's limit
-RWKV_SERVE = dict(SERVE, n_batches=2)
+RWKV_DEPTH = 12  # of 24: its WKV loop walks every token a layer (14b's prefills, ~5 s each)
 # phase 15: DeepSeek-V3 at full width (its registered config), cut in depth by
 # GQA_DEPTH to its three mla_dense layers and one mla (MoE) layer, float32, O3,
 # through 13b's teacher forcing. MLA's prefill and forward run B4 at q/k width
@@ -650,14 +690,13 @@ MLA_FLASH_SHAPE = (2, 2016, 128, 128, 192, 128)  # MLA's prefill: (B, T, H, KH, 
 # phase 16: RecurrentGemma-2B at full width and depth (its registered config:
 # 18 RG-LRU and 8 local-attention layers, MQA at head width 256, window 2048),
 # float32, random weights from a seed, O3. 16a serves it through serve() with
-# RG_SERVE's load (2 of phase 6's 8 batches, as 14b); 16b runs 13b's teacher
+# SERVE's load; 16b runs 13b's teacher
 # forcing on 2 x 4096 tokens, a prefill of 4064 and 32 decode steps: past the
 # window, so B4's window masks keys in the forward and the prefill, and the
 # local caches roll in decode. The RG-LRU scan is timed inside the prefill
 # (a host timer around each layer's scan) and its kernels counted on one scan
 # at the prefill's shape. B4 is timed at the forward's shape.
 RG_ARCH = "recurrentgemma-2b"
-RG_SERVE = dict(SERVE, n_batches=2)
 RG_PREFILL = 4064
 RG_FLASH_SHAPE = (2, 4096, 10, 1, 256, 2048)  # the forward's: (B, T, H, KH, hd, window)
 # 13b, 14a and 15 hold each B4 call to the plain twin as it is made, the twin
@@ -665,6 +704,13 @@ RG_FLASH_SHAPE = (2, 4096, 10, 1, 256, 2048)  # the forward's: (B, T, H, KH, hd,
 # its own rows): beside DeepSeek-V3's 60.4 GB of parameters, its 8 calls kept
 # would take 10.7 GB and the whole twin's (T, T) scores 13 GB.
 HOLD_SLICES = 8
+# phase 17: the sharded steps on the card's (1, 1) mesh. 17a's batch is
+# 12b's; 17b's prompt and steps are phase 6's; 17c's MoE model is 13b's cut.
+SHARD_TRAIN = dict(batch=GRAD_BATCH, seq=GRAD_SEQ, steps=3, lr=TRAIN["lr"],
+                   total=TRAIN["steps"])
+SHARD_SERVE = dict(batch=SERVE["batch"], prompt=SERVE["prompt_len"], steps=SERVE["gen_len"])
+SHARD_MOE = "qwen3-moe-30b-a3b"
+SHARD_RTOL, SHARD_ATOL, SHARD_MOE_ATOL = 1e-6, 1e-5, 2e-5
 PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
@@ -3342,7 +3388,7 @@ def watched_training():
     wall and B2 launches, with a copy of the state a save was given and the
     state a restore returned (and the nodes alive then)."""
     log = dict(steps=[], saves=[], restores=[])
-    make_step, save, restore = (train_mod.make_train_step, ECCheckpointStore.save,
+    make_step, save, restore = (train_mod.jit_train_step, ECCheckpointStore.save,
                                 ECCheckpointStore.restore)
     b2 = COUNTERS["gf256_matmul"]
 
@@ -3354,15 +3400,15 @@ def watched_training():
         torch.cuda.synchronize()
         return out, dict(wall=time.perf_counter() - t0, launches=b2.launches - before)
 
-    def make_train_step(model, opt):
-        step_fn = make_step(model, opt)
+    def jit_train_step(*args, **kwargs):
+        step_fn, *rest = make_step(*args, **kwargs)
 
         def train_step(state, batch):
             out, rec = timed(step_fn, state, batch)
             log["steps"].append(rec["wall"])
             return out
 
-        return train_step
+        return (train_step, *rest)
 
     def timed_save(self, state, step):
         out, rec = timed(save, self, state, step)
@@ -3375,12 +3421,12 @@ def watched_training():
         log["restores"].append(dict(rec, step=step, state=out, alive=self.alive_nodes()))
         return out
 
-    train_mod.make_train_step = make_train_step
+    train_mod.jit_train_step = jit_train_step
     ECCheckpointStore.save, ECCheckpointStore.restore = timed_save, timed_restore
     try:
         yield log
     finally:
-        train_mod.make_train_step = make_step
+        train_mod.jit_train_step = make_step
         ECCheckpointStore.save, ECCheckpointStore.restore = save, restore
 
 
@@ -3394,6 +3440,10 @@ def phase_train(dev, limits: dict) -> dict:
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=BUILD_DIR.parent))
     first = dict(TRAIN, smoke=False, ckpt_dir=str(root), log_every=100, device=dev)
     again = dict(first, fail_node_at=None, resume=True)
+    full_cfg, registry = get_config("smollm-135m"), train_mod.get_config
+    train_mod.get_config = lambda arch: dataclasses.replace(full_cfg, n_layers=TRAIN_DEPTH)
+    print(f"[12a] train('smollm-135m', smoke=False) on the (1, 1) mesh, {TRAIN_DEPTH} of "
+          f"{full_cfg.n_layers} layers")
     try:
         with watched_training() as log, recorded(ops, "gf256_matmul_cuda") as calls:
             (_, losses, store), first_launches = counted(
@@ -3463,6 +3513,7 @@ def phase_train(dev, limits: dict) -> dict:
               f"{tokens / steady:.6g} tokens/s ({tokens} tokens a step); B2 launches "
               f"{first_launches} in the first run, {again_launches} in the resume")
     finally:
+        train_mod.get_config = registry
         shutil.rmtree(root)
         torch.cuda.empty_cache()
     print(f"[12a] phase 12a wall {time.perf_counter() - t_phase:.3f} s")
@@ -4063,8 +4114,7 @@ def kernels_in(fn) -> int:
 
 
 def phase_rwkv(dev) -> dict:
-    """14b: ``serve("rwkv6-1.6b", smoke=False)`` with 2 batches of phase 6's
-    load (no prefill may launch a kernel of B1-B4: the path has none), then
+    """14b: ``serve("rwkv6-1.6b", smoke=False)`` with phase 6's load (no prefill may launch a kernel of B1-B4: the path has none), then
     a forward of 2 x 2048 tokens, a prefill of the first 2016 with the WKV
     loop timed, and 32 decode steps held to the forward; the kernels a
     prefill and a decode step launch, counted by the profiler."""
@@ -4081,19 +4131,23 @@ def phase_rwkv(dev) -> dict:
         prefill_launches.append(sum(counter.launches for counter in COUNTERS.values()))
         return out
 
+    full_cfg, registry = get_config("rwkv6-1.6b"), serve_mod.get_config
     lm.Model.prefill = counted_prefill
+    serve_mod.get_config = lambda arch: dataclasses.replace(full_cfg, n_layers=RWKV_DEPTH)
     try:
-        run = serve("rwkv6-1.6b", smoke=False, device=dev, **RWKV_SERVE)
+        run = serve("rwkv6-1.6b", smoke=False, device=dev, **SERVE)
     finally:
         lm.Model.prefill = prefill
+        serve_mod.get_config = registry
     serve_s = time.perf_counter() - t0
     model, params, cfg = run.model, run.params, run.model.cfg
     n_params = sum(x.numel() for x in tree_leaves(params))
-    print(f"[14b] serve('rwkv6-1.6b', smoke=False): {cfg.n_layers} layers (full depth), d_model "
+    print(f"[14b] serve('rwkv6-1.6b', smoke=False): {cfg.n_layers} of {full_cfg.n_layers} "
+          f"layers, d_model "
           f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_size} heads of {cfg.rwkv_head_size}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (untied), {n_params:.4g} parameters "
           f"({4 * n_params / 1e9:.2f} GB float32); serve wall {serve_s:.3f} s")
-    if len(prefill_launches) != RWKV_SERVE["n_batches"] + 1 or any(prefill_launches):
+    if len(prefill_launches) != SERVE["n_batches"] + 1 or any(prefill_launches):
         raise AssertionError(f"14b kernel launches per prefill {prefill_launches}: the path has "
                              f"no kernel of B1-B4")
     pi = run.router.pi[0]
@@ -4102,17 +4156,17 @@ def phase_rwkv(dev) -> dict:
     if any(pi[j] <= 0 for r in run.replicas for j in r):
         raise AssertionError(f"14b routed outside pi's support: {run.replicas}, pi {pi}")
     for toks in run.tokens:
-        if toks.shape != (RWKV_SERVE["batch"], RWKV_SERVE["gen_len"] + 1) or not (
+        if toks.shape != (SERVE["batch"], SERVE["gen_len"] + 1) or not (
                 (toks >= 0) & (toks < cfg.vocab)).all():
             raise AssertionError(f"14b generated tokens {tuple(toks.shape)} out of range")
-    tokens_served = RWKV_SERVE["batch"] * RWKV_SERVE["prompt_len"]
+    tokens_served = SERVE["batch"] * SERVE["prompt_len"]
     lat = np.asarray(run.latencies)
     result = dict(params=n_params, serve_prefill_ms=np.mean(run.prefill_s) * 1e3,
-                  serve_decode_ms_per_token=np.mean(run.decode_s) / RWKV_SERVE["gen_len"] * 1e3)
+                  serve_decode_ms_per_token=np.mean(run.decode_s) / SERVE["gen_len"] * 1e3)
     print(f"[14b] serve: {prefill_launches.count(0)} prefills with no kernel launch of B1-B4; "
           f"routes {run.replicas} inside pi's support {np.round(pi, 3)}; prefill "
           f"{result['serve_prefill_ms']:.3f} ms per {tokens_served}-token batch, decode "
-          f"{result['serve_decode_ms_per_token']:.3f} ms/token at batch {RWKV_SERVE['batch']}; "
+          f"{result['serve_decode_ms_per_token']:.3f} ms/token at batch {SERVE['batch']}; "
           f"batch latency mean {lat.mean() * 1e3:.3f} ms, p95 "
           f"{np.quantile(lat, 0.95) * 1e3:.3f} ms")
     del run
@@ -4219,7 +4273,7 @@ def phase_mla(dev, limits: dict) -> dict:
 
 def phase_recurrentgemma(dev, limits: dict) -> dict:
     """Phase 16: RecurrentGemma-2B at full width and depth. 16a serves it
-    through ``serve`` with RG_SERVE's load, every B4 call held as it is
+    through ``serve`` with SERVE's load, every B4 call held as it is
     made (each prefill launches B4 once a local layer); 16b runs
     ``gqa_model_run`` on 2 x 4096 tokens, a prefill of RG_PREFILL and 32
     decode steps held to the forward, with a host timer around each RG-LRU
@@ -4243,7 +4297,7 @@ def phase_recurrentgemma(dev, limits: dict) -> dict:
     lm.Model.prefill = counted_prefill
     try:
         with held_flash() as held:
-            run = serve(RG_ARCH, smoke=False, device=dev, **RG_SERVE)
+            run = serve(RG_ARCH, smoke=False, device=dev, **SERVE)
     finally:
         lm.Model.prefill = prefill
     serve_s = time.perf_counter() - t0
@@ -4256,7 +4310,7 @@ def phase_recurrentgemma(dev, limits: dict) -> dict:
           f"{cfg.window}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (tied), {n_params:.4g} parameters "
           f"({4 * n_params / 1e9:.2f} GB float32); serve wall {serve_s:.3f} s with every B4 "
           f"call held as it was made")
-    if prefill_launches != [kinds["local"]] * (RG_SERVE["n_batches"] + 1):
+    if prefill_launches != [kinds["local"]] * (SERVE["n_batches"] + 1):
         raise AssertionError(f"16a B4 launches per prefill {prefill_launches}, expected "
                              f"{kinds['local']} (one a local layer) for each")
     if held["calls"] != sum(prefill_launches):
@@ -4267,7 +4321,7 @@ def phase_recurrentgemma(dev, limits: dict) -> dict:
     if any(pi[j] <= 0 for r in run.replicas for j in r):
         raise AssertionError(f"16a routed outside pi's support: {run.replicas}, pi {pi}")
     for toks in run.tokens:
-        if toks.shape != (RG_SERVE["batch"], RG_SERVE["gen_len"] + 1) or not (
+        if toks.shape != (SERVE["batch"], SERVE["gen_len"] + 1) or not (
                 (toks >= 0) & (toks < cfg.vocab)).all():
             raise AssertionError(f"16a generated tokens {tuple(toks.shape)} out of range")
     lat = np.asarray(run.latencies)
@@ -4276,9 +4330,9 @@ def phase_recurrentgemma(dev, limits: dict) -> dict:
     print(f"[16a] {held['calls']} B4 calls of the serve path == plain twin, max_abs_err "
           f"{held['max_abs_err']:.3g}; routes {run.replicas} inside pi's support "
           f"{np.round(pi, 3)}; prefill {np.mean(run.prefill_s) * 1e3:.3f} ms per "
-          f"{RG_SERVE['batch'] * RG_SERVE['prompt_len']}-token batch and decode "
-          f"{np.mean(run.decode_s) / RG_SERVE['gen_len'] * 1e3:.3f} ms/token at batch "
-          f"{RG_SERVE['batch']} (holds included); batch latency mean {lat.mean() * 1e3:.3f} ms; "
+          f"{SERVE['batch'] * SERVE['prompt_len']}-token batch and decode "
+          f"{np.mean(run.decode_s) / SERVE['gen_len'] * 1e3:.3f} ms/token at batch "
+          f"{SERVE['batch']} (holds included); batch latency mean {lat.mean() * 1e3:.3f} ms; "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del run, held
     torch.cuda.empty_cache()
@@ -4319,6 +4373,242 @@ def phase_recurrentgemma(dev, limits: dict) -> dict:
           f"{int(np.ceil(np.log2(RG_PREFILL)))} doubling steps)")
     result.update(tf, scan_share=share, scan_ms=scan_ms, scan_kernels=per_scan)
     print(f"[16] phase 16 wall {time.perf_counter() - t0:.3f} s")
+    return result
+
+
+def sync_wall(fn):
+    """(fn's result, its wall in s between two synchronizes)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def hold_train_state(got, want, rtol: float) -> dict:
+    """One sharded train step's state against the unsharded step's from the
+    same start (trees of full tensors): every leaf within ``rtol`` of its
+    largest entry (v, AdamW's second moment, at twice it: a square doubles
+    a relative error), the step count exactly. Returns the largest
+    differences, relative to each leaf's largest entry."""
+    got, want = dict(flatten_with_keys(got)), dict(flatten_with_keys(want))
+    if got.keys() != want.keys():
+        raise AssertionError("17a: the sharded state's leaves differ from the unsharded one's")
+    worst = dict(moments=0.0, params=0.0)
+    for key, w in want.items():
+        g = got[key].to(w.device)
+        if key == ".opt.step":
+            if int(g) != int(w):
+                raise AssertionError(f"17a: step {int(g)} against {int(w)}")
+            continue
+        scale = float(w.abs().max()) or 1.0
+        rel = float((g.float() - w.float()).abs().max()) / scale
+        kind = "params" if key.startswith(".params") else "moments"
+        worst[kind] = max(worst[kind], rel)
+        if not rel <= rtol * (2 if key.startswith(".opt.v") else 1):
+            raise AssertionError(f"17a {key}: {rel:.3g} of its largest entry")
+    return worst
+
+
+def sharded_train(dev, mesh) -> dict:
+    """17a: SHARD_TRAIN's sharded train steps of SmolLM-135M at O2, each
+    held to the unsharded step from the same state."""
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg, mesh, dtype=torch.float32, remat="none", opt="O2", device=dev)
+    plain = build_model(cfg, None, dtype=torch.float32, remat="none", opt="O2", device=dev)
+    n = SHARD_TRAIN
+    opt = AdamW(lr=cosine_schedule(n["lr"], warmup=20, total=n["total"]), weight_decay=0.01)
+    params = model.init(torch.Generator(device=dev).manual_seed(GRAD_SEED))
+    meta = torch.empty((n["batch"], n["seq"]), dtype=torch.int64, device="meta")
+    step, _, state_sh, batch_sh = jit_train_step(model, opt, mesh, {"tokens": meta})
+    ref_step = make_train_step(plain, opt)
+    state = place(TrainState(params, opt.init(params)), state_sh)
+    gen = torch.Generator(device=dev).manual_seed(GRAD_SEED + 1)
+    walls, ref_walls, launches, worst = [], [], 0, dict(loss=0.0, grad_norm=0.0)
+    for i in range(n["steps"]):
+        batch = {"tokens": torch.randint(0, cfg.vocab, (n["batch"], n["seq"]), generator=gen,
+                                         device=dev)}
+        start = gather(state)
+        ((new, metrics), b4), wall = sync_wall(lambda: counted(
+            f"17a sharded step {i + 1}", lambda: step(state, batch), "flash_attention"))
+        (want, ref_metrics), ref_wall = sync_wall(lambda: ref_step(start, batch))
+        walls.append(wall)
+        ref_walls.append(ref_wall)
+        launches += b4
+        for key in ("loss", "grad_norm"):
+            got, exp = float(gather(metrics[key])), float(ref_metrics[key])
+            rel = abs(got - exp) / abs(exp)
+            worst[key] = max(worst[key], rel)
+            if rel > SHARD_RTOL:
+                raise AssertionError(f"17a step {i + 1} {key} {got} against {exp} ({rel:.3g})")
+        for key, v in hold_train_state(gather(new), want, SHARD_RTOL).items():
+            worst[key] = max(worst.get(key, 0.0), v)
+        print(f"[17a] step {i + 1}: loss {float(ref_metrics['loss']):.6f}, grad norm "
+              f"{float(ref_metrics['grad_norm']):.6f}; sharded {wall * 1e3:.1f} ms "
+              f"({b4} B4 launches), unsharded {ref_wall * 1e3:.1f} ms")
+        del start, want
+        state = new
+    print(f"[17a] {n['steps']} sharded train steps of {n['batch']} x {n['seq']} tokens (O2) == "
+          f"unsharded from the same states: largest relative differences loss "
+          f"{worst['loss']:.3g}, grad norm {worst['grad_norm']:.3g}, moments "
+          f"{worst['moments']:.3g}, parameters {worst['params']:.3g}, of each leaf's largest "
+          f"entry; rtol {SHARD_RTOL}")
+    return dict(launches=launches, walls=walls, ref_walls=ref_walls, worst=worst,
+                params=params)
+
+
+def sharded_serve(tag: str, dev, mesh, model, plain, params, batch: int, prompt: int,
+                  steps: int, atol: float, forward: bool = False) -> dict:
+    """``jit_prefill_step`` on ``batch`` x ``prompt`` random tokens and
+    ``steps`` ``jit_decode_step`` steps fed random tokens, each held to the
+    unsharded model's at ``atol`` (with ``forward``, first the whole
+    sequence's logits through ``forward_logits`` on the placed parameters);
+    the MoE routes of both recorded."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(GQA_SEED + 3)
+    toks = torch.randint(0, cfg.vocab, (batch, prompt + steps), generator=gen, device=dev)
+    i64 = lambda *shape: torch.empty(shape, dtype=torch.int64, device="meta")
+    prefill, _, p_sh, b_sh = jit_prefill_step(model, mesh, {"tokens": i64(batch, prompt)})
+    cache_sds = dataclasses.replace(model, device=torch.device("meta")).empty_caches(
+        batch, prompt + steps)
+    decode, *_ = jit_decode_step(model, mesh, {"token": i64(batch), "pos": i64(batch)},
+                                 cache_sds)
+    sharded = place(params, p_sh)
+    rec = dict(launches=0, walls={}, worst=0.0, routes={})
+    pos = lambda t: torch.full((batch,), t, dtype=torch.int64, device=dev)
+
+    def held(label, got, want):
+        err = float((gather(got).float() - want.float()).abs().max())
+        rec["worst"] = max(rec["worst"], err)
+        if not err <= atol:
+            raise AssertionError(f"{tag} {label}: logits differ by {err:.3g} (atol {atol})")
+
+    for name, params_ in (("sharded", sharded), ("unsharded", params)):
+        sharding = name == "sharded"
+        m = model if sharding else plain
+        with recorded_routes() as routes:
+            outs = []
+            if forward:
+                def fwd():
+                    if not sharding:
+                        return m.forward_logits(params_, {"tokens": toks[:, :prompt]})
+                    with implicit_replication():
+                        return m.forward_logits(params_, place({"tokens": toks[:, :prompt]},
+                                                               {"tokens": b_sh["tokens"]}))
+
+                with torch.no_grad():
+                    (logits, b4), wall = sync_wall(lambda: counted(
+                        f"{tag} {name} forward", fwd, "flash_attention"))
+                rec["walls"][f"{name}_forward"] = wall
+                rec["launches"] += b4 if sharding else 0
+                outs.append(gather(logits))
+                del logits
+            run_prefill = ((lambda: prefill(params_, {"tokens": toks[:, :prompt]}, prompt + steps))
+                           if sharding else
+                           (lambda: m.prefill(params_, {"tokens": toks[:, :prompt]},
+                                              cache_len=prompt + steps)))
+            ((logits, caches), b4), wall = sync_wall(lambda: counted(
+                f"{tag} {name} prefill", run_prefill, "flash_attention"))
+            rec["walls"][f"{name}_prefill"] = wall
+            rec["launches"] += b4 if sharding else 0
+            outs.append(gather(logits))
+            step_walls = []
+            for t in range(steps):
+                b = {"token": toks[:, prompt + t], "pos": pos(prompt + t)}
+                if sharding:
+                    (logits, caches), wall = sync_wall(lambda: decode(params_, caches, b))
+                else:
+                    (logits, caches), wall = sync_wall(lambda: m.decode_step(params_, caches, b))
+                step_walls.append(wall)
+                outs.append(gather(logits))
+            rec["walls"][f"{name}_decode"] = step_walls
+            rec["routes"][name] = [r[0].cpu() for r in routes]
+            rec[name] = outs
+            del caches
+    labels = (["forward"] if forward else []) + ["prefill"] + [f"step {t + 1}"
+                                                               for t in range(steps)]
+    for label, got, want in zip(labels, rec.pop("sharded"), rec.pop("unsharded")):
+        held(label, got, want)
+    w = rec["walls"]
+    print(f"[{tag}] prefill {batch} x {prompt}: sharded {w['sharded_prefill'] * 1e3:.1f} ms, "
+          f"unsharded {w['unsharded_prefill'] * 1e3:.1f} ms; decode step (median of {steps}): "
+          f"sharded {np.median(w['sharded_decode']) * 1e3:.1f} ms, unsharded "
+          f"{np.median(w['unsharded_decode']) * 1e3:.1f} ms; each sharded step's wall (ms): "
+          f"{[round(x * 1e3, 1) for x in w['sharded_decode']]}")
+    if forward:
+        print(f"[{tag}] forward {batch} x {prompt}: sharded {w['sharded_forward'] * 1e3:.1f} ms, "
+              f"unsharded {w['unsharded_forward'] * 1e3:.1f} ms")
+    print(f"[{tag}] {len(labels)} outputs == unsharded, largest |difference| "
+          f"{rec['worst']:.3g} (atol {atol}); {rec['launches']} B4 launches sharded")
+    return rec
+
+
+def phase_sharded(dev) -> dict:
+    """Phase 17: the multi-device layer on the card's world-1 NCCL (1, 1)
+    mesh: 17a sharded train steps, 17b sharded serving of SmolLM-135M, 17c
+    Qwen3-MoE's expert-parallel island; every B4 call held as it is made."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_local_mesh(dev)
+    print(f"[17] mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)} on {mesh.device_type}, "
+          f"backend {dist.get_backend()}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}")
+    result = {}
+    try:
+        with held_flash() as held:
+            train = sharded_train(dev, mesh)
+            cfg = get_config("smollm-135m")
+            n = SHARD_SERVE
+            serve_rec = sharded_serve(
+                "17b", dev, mesh,
+                build_model(cfg, mesh, dtype=torch.float32, remat="none", opt="O3", device=dev),
+                build_model(cfg, None, dtype=torch.float32, remat="none", opt="O3", device=dev),
+                train.pop("params"), n["batch"], n["prompt"], n["steps"], SHARD_ATOL)
+            torch.cuda.empty_cache()
+            full_cfg = get_config(SHARD_MOE)
+            cfg = dataclasses.replace(full_cfg, n_layers=GQA_DEPTH[SHARD_MOE])
+            model = build_model(cfg, mesh, dtype=torch.float32, remat="none", opt="O3",
+                                device=dev)
+            if model.ep is None:
+                raise AssertionError("17c: the MoE model on the mesh has no EP island")
+            plain = build_model(cfg, None, dtype=torch.float32, remat="none", opt="O3",
+                                device=dev)
+            params = plain.init(torch.Generator(device=dev).manual_seed(GQA_SEED))
+            ep0 = moe._expert_compute.host_syncs
+            moe_rec = sharded_serve("17c", dev, mesh, model, plain, params, GQA_BATCH,
+                                    GQA_PREFILL, GQA_DECODE, SHARD_MOE_ATOL, forward=True)
+            del params
+            routes = moe_rec.pop("routes")
+            if len(routes["sharded"]) != len(routes["unsharded"]):
+                raise AssertionError(f"17c: {len(routes['sharded'])} routing calls sharded, "
+                                     f"{len(routes['unsharded'])} unsharded")
+            differ = sum(int((torch.sort(a, -1)[0] != torch.sort(b, -1)[0]).any(-1).sum())
+                         for a, b in zip(routes["sharded"], routes["unsharded"]))
+            tokens = sum(r.shape[0] for r in routes["sharded"])
+            path = lambda t: f"t_local * top_k = {t * cfg.moe.top_k}: the " + (
+                "tiny path" if t * cfg.moe.top_k <= 4096 else "ZeRO path")
+            print(f"[17c] {SHARD_MOE}: {cfg.n_layers} of {full_cfg.n_layers} layers on the EP "
+                  f"island (forward and prefill {path(GQA_BATCH * GQA_PREFILL)}; decode "
+                  f"{path(GQA_BATCH)}); "
+                  f"{len(routes['sharded'])} routing calls, {differ} of {tokens} tokens' top-"
+                  f"{cfg.moe.top_k} sets differ; {moe._expert_compute.host_syncs - ep0} host "
+                  f"syncs")
+            if differ:
+                raise AssertionError(f"17c: {differ} top-k sets differ from the local path")
+        result = dict(train=train, serve=serve_rec, moe=moe_rec, held_calls=held["calls"],
+                      max_abs_err=held["max_abs_err"],
+                      launches=train["launches"] + serve_rec["launches"] + moe_rec["launches"])
+        print(f"[17] {held['calls']} B4 calls held to the plain twin as made, max_abs_err "
+              f"{held['max_abs_err']:.3g}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB")
+    finally:
+        dist.destroy_process_group()
+    print(f"[17] phase 17 wall {time.perf_counter() - t0:.3f} s")
     return result
 
 
@@ -4364,6 +4654,7 @@ def main() -> int:
     late = phase_encdec_rwkv(dev, limits)
     mla = phase_mla(dev, limits)
     rg = phase_recurrentgemma(dev, limits)
+    sharded = phase_sharded(dev)
     by_path = {"quickstart_simulate": quick_launches,
                "catalog_simulate_fleet": fleet_launches,
                "figures_simulate": figure_launches,
@@ -4434,7 +4725,10 @@ def main() -> int:
                    "seamless-m4t-medium_forward_prefill": late["encdec"]["launches"],
                    f"{MLA_ARCH}_forward_prefill": mla["launches"],
                    f"{RG_ARCH}_serve_prefill": rg["serve_launches"],
-                   f"{RG_ARCH}_forward_prefill": rg["launches"]}
+                   f"{RG_ARCH}_forward_prefill": rg["launches"],
+                   "sharded_train_O2": sharded["train"]["launches"],
+                   "sharded_prefill_O3": sharded["serve"]["launches"],
+                   f"{SHARD_MOE}_ep_forward_prefill": sharded["moe"]["launches"]}
     phi4, encdec, qk192 = gqa["record"], late["encdec"]["record"], mla["record"]
     hd256 = rg["record"]
     kernels.append({
@@ -4447,7 +4741,7 @@ def main() -> int:
         "launches_by_path": flash_paths,
         "max_abs_err": max(flash_err, flash["max_abs_err"], grad["record"]["max_abs_err"],
                            phi4["max_abs_err"], encdec["max_abs_err"], qk192["max_abs_err"],
-                           rg["serve_max_abs_err"], hd256["max_abs_err"],
+                           rg["serve_max_abs_err"], hd256["max_abs_err"], sharded["max_abs_err"],
                            *(run["max_abs_err"] for run in gqa["models"].values())),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],

@@ -1,0 +1,80 @@
+"""Functions run on each rank's (batch, head) block of DTensors.
+
+Some computations are independent per batch row and per head: attention's
+core, RWKV6's recurrence. Run by DTensor's sharding propagation op by op,
+their batched products merge a DP-sharded batch dim with a TP-sharded head
+dim into strided shards, whose redistributions DTensor plans by a graph
+search on every new shape, and a per-token loop pays DTensor's host cost
+on every step. ``local_blocks`` runs such a function once per rank on
+local tensors through ``local_map``: the batch dim over the DP axes when
+it divides them, the head dim over ``model`` when every head count
+divides it, each replicated otherwise. A gradient comes back at its
+input's placements, except over a mesh axis that splits the work but not
+that input (a weight without a batch dim, over the DP axes): there each
+rank's gradient is its block's share, partial.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+from torch import Tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+
+def local_blocks(fn: Callable, args: Sequence[Tensor], dims: Sequence[tuple],
+                 out_dims: Sequence[tuple]):
+    """``fn(*args)`` on each rank's block. ``dims[i]`` is arg i's (batch
+    dim, head dim), either None; ``out_dims`` likewise for each output (a
+    single output: one entry). A plain tensor arg is taken as replicated
+    (every rank holds the same value). Returns DTensors, a tuple for
+    several outputs."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    names = mesh.mesh_dim_names
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    dp_n = math.prod(mesh.size(names.index(a)) for a in dp)
+    tp_n = mesh.size(names.index("model")) if "model" in names else 0
+    batch = all(a.shape[b] % dp_n == 0 for a, (b, _) in zip(args, dims) if b is not None)
+    heads = tp_n > 0 and any(h is not None for _, h in dims) and all(
+        a.shape[h] % tp_n == 0 for a, (_, h) in zip(args, dims) if h is not None)
+
+    def pl(b, h, split=Replicate):
+        """Placements for (batch dim, head dim); ``split`` where the work
+        is split over an axis that the tensor has no dim for."""
+        out = []
+        for a in names:
+            if a in dp and batch:
+                out.append(Shard(b) if b is not None else split())
+            elif a == "model" and heads:
+                out.append(Shard(h) if h is not None else split())
+            else:
+                out.append(Replicate())
+        return tuple(out)
+
+    args = [a if isinstance(a, DTensor) else
+            DTensor.from_local(a, mesh, [Replicate()] * len(names), run_check=False)
+            for a in args]
+    in_pl = tuple(pl(*d) for d in dims)
+    grad_pl = tuple(pl(*d, split=Partial) for d in dims)
+    out_pl = [list(pl(*d)) for d in out_dims]
+    return local_map(fn, out_placements=out_pl[0] if len(out_pl) == 1 else tuple(out_pl),
+                     in_placements=in_pl, in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def split_last(x: Tensor, *sizes: int) -> Tensor:
+    """``x.reshape(*x.shape[:-1], *sizes)``. A DTensor whose last dim is
+    split over mesh axes that do not divide ``sizes[0]`` (9 heads over a
+    model axis of 2: the product's columns divide, the heads do not) is
+    first replicated over those axes, as GSPMD would gather it: DTensor's
+    view cannot split a sharded dim unevenly."""
+    if isinstance(x, DTensor):
+        last = x.ndim - 1
+        on = [i for i, pl in enumerate(x.placements)
+              if isinstance(pl, Shard) and pl.dim in (last, -1)]
+        if on and sizes[0] % math.prod(x.device_mesh.size(i) for i in on):
+            x = x.redistribute(x.device_mesh, [Replicate() if i in on else pl
+                                               for i, pl in enumerate(x.placements)])
+    return x.reshape(*x.shape[:-1], *sizes)

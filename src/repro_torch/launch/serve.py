@@ -22,6 +22,12 @@ whose encoder needs the stub frontend's ``enc_embeds``; serving with text
 prompts makes neither. On
 the card TF32 is switched off: the projections are float32 matmuls, and
 TF32 would break parity with the reference.
+
+As in the reference, the model is built on ``make_local_mesh`` (an MoE
+arch gets its expert-parallel island); the parameters are placed by the
+sharding rules once, and prefill and decode run through
+``jit_prefill_step`` and ``jit_decode_step``, eager steps over DTensors.
+``ServeRun.params`` holds the plain parameters as ``Model.init`` made them.
 """
 from __future__ import annotations
 
@@ -35,7 +41,14 @@ from torch import Tensor
 
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.core import exponential_moments
-from repro_torch.launch.steps import build_model
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import (
+    build_model,
+    gather,
+    jit_decode_step,
+    jit_prefill_step,
+    place,
+)
 from repro_torch.models import Model
 from repro_torch.serving import ReplicaPool, Router
 from repro_torch.storage.cluster import _device
@@ -77,10 +90,12 @@ def serve(
         torch.backends.cudnn.allow_tf32 = False
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    model = build_model(cfg, dtype=torch.float32, remat="none", opt="O3", device=dev)
+    mesh = make_local_mesh(dev)
+    model = build_model(cfg, mesh, dtype=torch.float32, remat="none", opt="O3", device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model.init(gen)
     cache_len = prompt_len + gen_len
+    prefill, decode = _steps(model, mesh, params, batch, prompt_len, cache_len)
 
     def prompt() -> Tensor:
         return torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen, device=dev)
@@ -89,14 +104,12 @@ def serve(
         return torch.full((batch,), p, dtype=torch.int64, device=dev)
 
     # replica pool: measured step time per replica with synthetic skew
-    logits, caches = model.prefill(params, {"tokens": prompt()}, cache_len=cache_len)
+    logits, caches = prefill(prompt())
     tok = torch.argmax(logits, -1)
-    logits, caches = model.decode_step(
-        params, caches, {"token": tok, "pos": positions(prompt_len)})  # warm-up
+    logits, caches = decode(caches, {"token": tok, "pos": positions(prompt_len)})  # warm-up
     sync()
     t0 = time.perf_counter()
-    logits, caches = model.decode_step(
-        params, caches, {"token": tok, "pos": positions(prompt_len + 1)})
+    logits, caches = decode(caches, {"token": tok, "pos": positions(prompt_len + 1)})
     sync()
     ms = (time.perf_counter() - t0) * 1e3
     skew = torch.linspace(1.0, 0.6, n_replicas)
@@ -114,14 +127,14 @@ def serve(
         sync()
         t0 = time.perf_counter()
         toks = prompt()
-        logits, caches = model.prefill(params, {"tokens": toks}, cache_len=cache_len)
+        logits, caches = prefill(toks)
         tok = torch.argmax(logits, -1)
         sync()
         t1 = time.perf_counter()
         out = [tok]
         for t in range(gen_len):
             step = {"token": tok, "pos": positions(prompt_len + t)}
-            logits, caches = model.decode_step(params, caches, step)
+            logits, caches = decode(caches, step)
             tok = torch.argmax(logits, -1)
             out.append(tok)
         sync()
@@ -138,6 +151,29 @@ def serve(
     lat = np.asarray(run.latencies)
     print(f"[serve] mean {lat.mean() * 1e3:.1f} ms  p95 {np.quantile(lat, .95) * 1e3:.1f} ms")
     return run
+
+
+def _steps(model: Model, mesh, params, batch: int, prompt_len: int, cache_len: int):
+    """``prefill(tokens)`` and ``decode(caches, step)``, each giving (plain
+    logits, caches): the sharded steps on ``mesh`` over parameters placed
+    once."""
+    meta = lambda *shape: torch.empty(shape, dtype=torch.int64, device="meta")
+    prefill_fn, _, p_sh, _ = jit_prefill_step(model, mesh, {"tokens": meta(batch, prompt_len)})
+    cache_sds = dataclasses.replace(model, device=torch.device("meta")).empty_caches(
+        batch, cache_len)
+    decode_fn, *_ = jit_decode_step(model, mesh, {"token": meta(batch), "pos": meta(batch)},
+                                    cache_sds)
+    sharded = place(params, p_sh)
+
+    def prefill(toks):
+        logits, caches = prefill_fn(sharded, {"tokens": toks}, cache_len)
+        return gather(logits), caches
+
+    def decode(caches, step):
+        logits, caches = decode_fn(sharded, caches, step)
+        return gather(logits), caches
+
+    return prefill, decode
 
 
 def main():

@@ -14,8 +14,12 @@ checkpoints with a JLCM-planned placement. It demonstrates
 
 Resume keeps the reference's semantics: the state saved at step ``s`` is
 the state after step ``s``'s update, and a resume runs ``range(s, steps)``,
-so batch ``s`` is applied twice. One card runs the step eagerly; there is
-no mesh (the reference's GSPMD shardings wait for ``distributed/``).
+so batch ``s`` is applied twice. As in the reference, training runs on a
+mesh: ``make_local_mesh`` (a world of one unless a launcher started more),
+the model built for it, the state placed by the sharding rules and each
+step through ``jit_train_step``, an eager step over DTensors. A checkpoint
+save gathers each leaf (``full_tensor``) before the EC store packs the
+state, and a restore places the leaves again.
 
     PYTHONPATH=src python -m repro_torch.launch.train --full --ckpt-dir build/ckpt
 
@@ -34,7 +38,17 @@ import torch
 from repro_torch.checkpoint import ECCheckpointStore, plan_for_params
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.data.pipeline import SyntheticLM
-from repro_torch.launch.steps import TrainState, build_model, loss_and_grads, make_train_step
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import (
+    TrainState,
+    build_model,
+    gather,
+    jit_train_step,
+    loss_and_grads,
+    place,
+)
 from repro_torch.optim import AdamW, compress_decompress, compress_init, cosine_schedule
 from repro_torch.storage import tahoe_testbed
 from repro_torch.storage.cluster import _device
@@ -62,13 +76,16 @@ def train(
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    model = build_model(cfg, dtype=dtype, remat="none", device=dev)
+    mesh = make_local_mesh(dev)
+    model = build_model(cfg, mesh, dtype=dtype, remat="none", device=dev)
     opt = AdamW(lr=cosine_schedule(lr, warmup=20, total=steps), weight_decay=0.01)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch, device=dev)
-    step_fn = make_train_step(model, opt)
 
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     state = TrainState(params=params, opt=opt.init(params))
+    batch_sds = {"tokens": torch.empty((batch, seq), dtype=torch.int64, device="meta")}
+    step_fn, _, state_sh, batch_sh = jit_train_step(model, opt, mesh, batch_sds)
+    state = place(state, state_sh)
     cstate = compress_init(params) if grad_compress else None
 
     # --- paper plane: EC checkpoint store on the 3-site testbed model
@@ -77,7 +94,7 @@ def train(
     if ckpt_dir:
         cluster = tahoe_testbed(device=dev)
         # plan over the FULL train state (params + optimizer moments)
-        plan = plan_for_params(state, cluster, group_mb=4.0, chunk_mb=1.0, theta=0.5)
+        plan = plan_for_params(gather(state), cluster, group_mb=4.0, chunk_mb=1.0, theta=0.5)
         store = ECCheckpointStore(ckpt_dir, plan)
         print(
             f"[train] EC checkpoint plan: {len(plan.groups)} groups, "
@@ -90,7 +107,7 @@ def train(
         if resume and latest:
             start_step = latest[-1]
             print(f"[train] restoring step {start_step} from EC store")
-            state = store.restore(start_step, state)
+            state = place(store.restore(start_step, gather(state)), state_sh)
 
     losses = []
     t0 = time.time()
@@ -98,18 +115,19 @@ def train(
         b = data.batch_at(step)
         if grad_compress:
             # EF-compressed gradient path (wire-format modelled)
-            loss, grads = loss_and_grads(model, state.params, b)
-            grads, cstate = compress_decompress(grads, cstate)
-            new_params, new_opt = opt.update(grads, state.opt, state.params)
-            state = TrainState(new_params, new_opt)
-            metrics = {"loss": loss}
+            with implicit_replication():
+                loss, grads = loss_and_grads(model, state.params, place(b, batch_sh))
+                grads, cstate = compress_decompress(grads, cstate)
+                new_params, new_opt = opt.update(grads, state.opt, state.params)
+            state = place(TrainState(new_params, new_opt), state_sh)
+            metrics = gather({"loss": loss})
         else:
             state, metrics = step_fn(state, b)
-        losses.append(float(metrics["loss"]))
+        losses.append(float(gather(metrics["loss"])))
         if step % log_every == 0:
             print(f"[train] step {step:4d} loss {losses[-1]:.4f}")
         if store and step and step % ckpt_every == 0:
-            store.save(state, step)
+            store.save(gather(state), step)
             print(f"[train] EC checkpoint @ step {step}")
         if store and fail_node_at is not None and step == fail_node_at:
             victim = store.plan.groups[0].placement[0]

@@ -11,15 +11,27 @@ autograd the wrapper's backward (``flash_attention_backward``, torch ops
 tile by tile over key blocks, the same code on both devices) gives dq, dk
 and dv, as XLA differentiates the reference's tiles.
 
+On a mesh (DTensor q, k, v) the kernel runs on local blocks through
+``local_map`` (``on_local_blocks``), since its launcher takes raw
+pointers: the batch sharded over the DP axes, the heads over ``model``
+where both H and KH divide it and replicated otherwise (where the sharding
+rules replicate ``wq``, ``wk`` and ``wv``). The autograd wrapper runs
+inside unchanged. The naive attention core (``layers._sdpa``) runs on the
+same blocks.
+
 ``chunked_softmax_xent`` is the reference's chunked cross entropy for
 training: static vocab chunks with a running max and sum-exp and the gold
 logit, never the (B, S, V) float32 logits at once.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import Tensor
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.blocks import local_blocks
 from repro_torch.kernels import flash_attention as fa
 
 
@@ -47,10 +59,31 @@ def chunked_sdpa(
     """
     if not causal:
         k_blk = k.shape[1]
-    return fa.flash_attention(
-        q, k, v, scale=float(scale), causal=causal, window=window,
-        q_blk=q_blk, k_blk=k_blk,
-    )
+    run = functools.partial(fa.flash_attention, scale=float(scale), causal=causal,
+                            window=window, q_blk=q_blk, k_blk=k_blk)
+    if isinstance(q, DTensor):
+        return on_local_blocks(run, q, k, v)
+    return run(q, k, v)
+
+
+def on_local_blocks(run, q: Tensor, k: Tensor, v: Tensor, *rest: Tensor) -> Tensor:
+    """``run(q, k, v, *rest)`` on each rank's block of DTensors
+    (``distributed.blocks.local_blocks``): q, k and v (B, T, heads, width)
+    by batch and head, each of ``rest`` (batch-leading, e.g. a mask) by
+    batch only. The output is placed as q."""
+    return local_blocks(run, (q, k, v) + rest, [(0, 2)] * 3 + [(0, None)] * len(rest),
+                        [(0, 2)])
+
+
+def gather_last(x: Tensor, idx: Tensor) -> Tensor:
+    """``x[..., idx]`` per row: x (..., V), idx (...) -> (...). On a DTensor
+    it selects with a mask and sums over V (one nonzero term, so exact):
+    DTensor's ``gather`` over a sharded V leaves a masked partial that it
+    cannot reduce once the result is indexed."""
+    if isinstance(x, DTensor):
+        hit = idx[..., None] == torch.arange(x.shape[-1], device=x.device)
+        return torch.where(hit, x, 0.0).sum(-1)
+    return torch.gather(x, -1, idx[..., None])[..., 0]
 
 
 def chunked_softmax_xent(
@@ -76,7 +109,7 @@ def chunked_softmax_xent(
         l = l * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
         in_chunk = (labels >= vs) & (labels < ve)
         idx = torch.clamp(labels - vs, 0, ve - vs - 1)
-        g = torch.gather(logits, -1, idx[..., None])[..., 0]
+        g = gather_last(logits, idx)
         gold = torch.where(in_chunk, g, gold)
         m = m_new
     logz = m + torch.log(l)

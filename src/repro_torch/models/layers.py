@@ -5,21 +5,27 @@ compressed cache), and the dense MLP.
 
 The port of ``repro/models/layers.py``. Layers are plain functions over
 parameter trees (nested dicts of tensors); the parameters carry the dtype
-and the device, activations follow. The reference's ``pin_batch`` is a
-GSPMD sharding constraint and has no counterpart on one card, so it is
-dropped. The ``stub`` probe (a roofline decomposition for the TPU) waits
-for ROADMAP A20; ``Model`` refuses it.
+and the device, activations follow. On a mesh the trees hold DTensors and
+the same functions run by DTensor's sharding propagation (the attention
+core on each rank's block, ``attention_opt.on_local_blocks``); ``pin_batch``,
+the reference's GSPMD batch-sharding constraint, re-places a DTensor's
+batch dim on the DP axes. The ``stub`` probe (a roofline decomposition
+for the dry-run) is not ported yet; ``Model`` refuses it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from .attention_opt import chunked_sdpa
+from repro_torch.distributed.blocks import split_last
+
+from .attention_opt import chunked_sdpa, on_local_blocks
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -37,6 +43,23 @@ class Ctx(NamedTuple):
     attn_q_blk: int = 1024
     attn_k_blk: int = 1024
     cache_update: str = "onehot"  # "onehot" | "dus"
+    ep: Any = None  # moe.EPSpec: the expert-parallel island on a mesh
+    pin_mesh: Any = None  # DeviceMesh: batch-sharding pins at attention
+    pin_axes: tuple = ()
+
+
+def pin_batch(x: Tensor, ctx: Ctx) -> Tensor:
+    """Re-place a DTensor's batch dim on the DP axes ``ctx.pin_axes`` (and
+    replicate it over the other mesh axes) when the batch divides them; a
+    plain tensor, or a context without a mesh, passes as it is."""
+    if ctx.pin_mesh is None or not ctx.pin_axes or not isinstance(x, DTensor):
+        return x
+    mesh = ctx.pin_mesh
+    names = mesh.mesh_dim_names
+    dp = math.prod(mesh.size(names.index(a)) for a in ctx.pin_axes)
+    if x.shape[0] % dp != 0:
+        return x
+    return x.redistribute(mesh, [Shard(0) if a in ctx.pin_axes else Replicate() for a in names])
 
 
 def _init(gen: torch.Generator, shape, fan_in: int, dtype, device) -> Tensor:
@@ -144,7 +167,13 @@ def _write_kv(cache: Tensor, new: Tensor, pos: Tensor, mode: str) -> Tensor:
 
 
 def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale) -> Tensor:
-    """q (B,Tq,H,hd), k/v (B,Tk,KH,hd) with GQA head grouping."""
+    """q (B,Tq,H,hd), k/v (B,Tk,KH,hd) with GQA head grouping; mask
+    (B,Tq,Tk). On a mesh each rank runs its (batch, head) block
+    (``on_local_blocks``): the einsums' merged batch dims would otherwise
+    be strided shards, whose redistributions DTensor plans by a graph
+    search on every new shape."""
+    if isinstance(q, DTensor):
+        return on_local_blocks(functools.partial(_sdpa, scale=scale), q, k, v, mask)
     b, tq, h, hd = q.shape
     kh = k.shape[2]
     g = h // kh
@@ -171,15 +200,15 @@ def attn_apply(
     new_cache)."""
     b, t, d = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = (x @ p["wq"]).reshape(b, t, h, hd)
+    q = split_last(x @ p["wq"], h, hd)
     if cross and ctx.mode == "decode":
         # encoder memory K/V live in the cross cache; never recomputed
         assert cache is not None
         k, v = cache["k"], cache["v"]
     else:
         kv_src = ctx.enc_out if cross else x
-        k = (kv_src @ p["wk"]).reshape(b, kv_src.shape[1], kh, hd)
-        v = (kv_src @ p["wv"]).reshape(b, kv_src.shape[1], kh, hd)
+        k = split_last(kv_src @ p["wk"], kh, hd)
+        v = split_last(kv_src @ p["wv"], kh, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         if not (cross and ctx.mode == "decode"):
@@ -219,8 +248,8 @@ def attn_apply(
         # overwritten mod s (Mistral-style sliding window).
         rolling = window is not None and s <= window
         write = pos % s if rolling else pos
-        k_cache = _write_kv(cache["k"], k, write, ctx.cache_update)
-        v_cache = _write_kv(cache["v"], v, write, ctx.cache_update)
+        k_cache = pin_batch(_write_kv(cache["k"], k, write, ctx.cache_update), ctx)
+        v_cache = pin_batch(_write_kv(cache["v"], v, write, ctx.cache_update), ctx)
         new_cache = {"k": k_cache, "v": v_cache}
         j = torch.arange(s, device=x.device)[None, :]
         if rolling:
@@ -232,10 +261,11 @@ def attn_apply(
         y = _sdpa(q, k_cache, v_cache, mask[:, None, :], scale)
     else:  # train / prefill: full causal (optionally windowed) self-attn
         if ctx.attn_impl == "chunked":
-            y = chunked_sdpa(
+            q, k, v = pin_batch(q, ctx), pin_batch(k, ctx), pin_batch(v, ctx)
+            y = pin_batch(chunked_sdpa(
                 q, k, v, scale, causal=True, window=window,
                 q_blk=ctx.attn_q_blk, k_blk=ctx.attn_k_blk,
-            )
+            ), ctx)
         else:
             i = torch.arange(t, device=x.device)[:, None]
             j = torch.arange(t, device=x.device)[None, :]
@@ -285,7 +315,7 @@ def mla_apply(
     nd, rd, vd = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
 
     q = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps) @ p["wq_b"]
-    q = q.reshape(b, t, h, nd + rd)
+    q = split_last(q, h, nd + rd)
     q_nope, q_pe = q[..., :nd], q[..., nd:]
 
     kv_a = x @ p["wkv_a"]  # (B,T, rank+rd)
@@ -309,11 +339,11 @@ def mla_apply(
         assert cache is not None
         s = cache["ckv"].shape[1]
         pos = ctx.decode_pos
-        ckv = _write_kv(cache["ckv"], c_kv, pos, ctx.cache_update)
-        kpe = _write_kv(cache["kpe"], k_pe, pos, ctx.cache_update)
+        ckv = pin_batch(_write_kv(cache["ckv"], c_kv, pos, ctx.cache_update), ctx)
+        kpe = pin_batch(_write_kv(cache["kpe"], k_pe, pos, ctx.cache_update), ctx)
         new_cache = {"ckv": ckv, "kpe": kpe}
         # absorbed: q_eff[h] = W_uk[h]^T q_nope[h], in latent space
-        w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, nd)
+        w_uk = split_last(p["w_uk"], h, nd)
         q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)  # (B,1,H,rank)
         logits = (
             torch.einsum("bqhr,bsr->bhqs", q_eff, ckv)
@@ -323,19 +353,20 @@ def mla_apply(
         logits = torch.where(j <= pos[:, None, None, None], logits, -1e30)
         w = torch.softmax(logits, dim=-1).to(x.dtype)
         ctx_lat = torch.einsum("bhqs,bsr->bqhr", w, ckv)  # (B,1,H,rank)
-        w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, vd)
+        w_uv = split_last(p["w_uv"], h, vd)
         out = torch.einsum("bqhr,rhv->bqhv", ctx_lat, w_uv)
     else:
         # expand K and V per head from the latent
-        k_nope = (c_kv @ p["w_uk"]).reshape(b, t, h, nd)
-        v = (c_kv @ p["w_uv"]).reshape(b, t, h, vd)
+        k_nope = split_last(c_kv @ p["w_uk"], h, nd)
+        v = split_last(c_kv @ p["w_uv"], h, vd)
         k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, t, h, rd)], dim=-1)
         q_full = torch.cat([q_nope, q_pe], dim=-1)
         if ctx.attn_impl == "chunked":
-            out = chunked_sdpa(
+            q_full, k_full, v = pin_batch(q_full, ctx), pin_batch(k_full, ctx), pin_batch(v, ctx)
+            out = pin_batch(chunked_sdpa(
                 q_full, k_full, v, scale, causal=True, window=None,
                 q_blk=ctx.attn_q_blk, k_blk=ctx.attn_k_blk,
-            )
+            ), ctx)
         else:
             i = torch.arange(t, device=x.device)[:, None]
             j = torch.arange(t, device=x.device)[None, :]

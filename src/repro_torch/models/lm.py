@@ -29,13 +29,28 @@ from typing import Any
 
 import torch
 from torch import Tensor
+from torch.distributed.tensor import DTensor
 
-from .attention_opt import chunked_softmax_xent
+from repro_torch.distributed.blocks import local_blocks
+
+from .attention_opt import chunked_softmax_xent, gather_last
 from .config import ModelConfig
 from .layers import Ctx, rmsnorm, rmsnorm_init
+from .moe import EPSpec
 from .stack import REMAT, _check_kind, stack_apply, stack_init
 
 Params = dict[str, Any]
+
+
+def _lookup(embed: Tensor, tokens: Tensor) -> Tensor:
+    """``embed[tokens]``. On a mesh each rank looks up its batch rows in the
+    gathered table (``local_blocks``), the table's gradient partial over
+    the DP axes: DTensor's own strategies for the lookup's backward
+    (``index_put``) fail in some torch releases."""
+    if isinstance(embed, DTensor):
+        return local_blocks(lambda e, t: e[t], (embed, tokens), [(None, None), (0, None)],
+                            [(0, None)])
+    return embed[tokens]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +64,9 @@ class Model:
     attn_k_blk: int = 1024
     cache_update: str = "onehot"  # decode KV write: "onehot" | "dus"
     vocab_chunk: int | None = None  # chunked CE (no (B,S,V) float32 logits)
+    ep: EPSpec | None = None  # the MoE expert-parallel island on a mesh
+    pin_mesh: Any = None  # DeviceMesh: batch-sharding pins at attention (O2 and up)
+    pin_axes: tuple = ()
 
     def __post_init__(self):
         cfg = self.cfg
@@ -56,7 +74,7 @@ class Model:
             _check_kind(kind)
         if self.attn_impl not in ("naive", "chunked"):
             raise NotImplementedError(
-                f"attn_impl {self.attn_impl!r}: not ported yet (ROADMAP A20)")
+                f"attn_impl {self.attn_impl!r}: not ported yet (the dry-run's probe, ROADMAP A20)")
         if self.remat not in REMAT:
             raise ValueError(f"remat {self.remat!r} is not one of {REMAT}")
 
@@ -92,7 +110,8 @@ class Model:
         """The encoder stack over the frontend's embeddings, in train mode
         (no cache) under the model's ``remat``, as in the reference."""
         h, _, _ = stack_apply(params["encoder"]["stack"], enc_embeds.to(self.dtype),
-                              Ctx(mode="train"), self._encoder_cfg(), remat=self.remat)
+                              Ctx(mode="train", ep=self.ep), self._encoder_cfg(),
+                              remat=self.remat)
         return rmsnorm(params["encoder"]["ln_f"], h, self.cfg.norm_eps)
 
     def _with_encoder(self, params: Params, batch: dict) -> dict:
@@ -103,7 +122,7 @@ class Model:
         return dict(batch, _enc_out=self._run_encoder(params, batch["enc_embeds"]))
 
     def _embed(self, params: Params, batch: dict) -> Tensor:
-        x = params["embed"][batch["tokens"]]  # (B,S,d)
+        x = _lookup(params["embed"], batch["tokens"])  # (B,S,d)
         pe = batch.get("patch_embeds")
         if pe is not None:  # the stub vision frontend's patches, first P slots
             x = torch.cat([x[:, :pe.shape[1]] + pe.to(x.dtype), x[:, pe.shape[1]:]], dim=1)
@@ -125,6 +144,9 @@ class Model:
             attn_q_blk=self.attn_q_blk,
             attn_k_blk=self.attn_k_blk,
             cache_update=self.cache_update,
+            ep=self.ep,
+            pin_mesh=self.pin_mesh,
+            pin_axes=self.pin_axes,
         )
 
     # -------------------------------------------------------------- train
@@ -149,7 +171,10 @@ class Model:
         ``labels`` default to the tokens shifted left, padded with 0."""
         labels = batch.get("labels")
         if labels is None:
-            labels = torch.nn.functional.pad(batch["tokens"][:, 1:], (0, 1), value=0)
+            # the tokens shifted left, 0 last (a concatenation: DTensor's pad
+            # mis-places its output in some torch releases)
+            tokens = batch["tokens"]
+            labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
         labels = labels.long()
         h, aux = self._hidden(params, batch)
         if self.vocab_chunk is not None:
@@ -159,10 +184,11 @@ class Model:
             ce_tok = chunked_softmax_xent(h, w, labels, chunk=self.vocab_chunk)
         else:
             logits = self._head(params, h).float()
-            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+            gold = gather_last(logits, labels)
             ce_tok = torch.logsumexp(logits, dim=-1) - gold
-        mask = torch.ones_like(ce_tok)
-        mask[:, -1] = 0.0  # last position has no target
+        # last position has no target (a plain tensor: on a mesh, replicated)
+        mask = torch.ones(ce_tok.shape, dtype=ce_tok.dtype, device=ce_tok.device)
+        mask[:, -1] = 0.0
         return torch.sum(ce_tok * mask) / torch.sum(mask) + aux
 
     # -------------------------------------------------------------- serve
@@ -184,7 +210,7 @@ class Model:
         self, params: Params, caches: Params, batch: dict
     ) -> tuple[Tensor, Params]:
         """One token: batch = {token (B,), pos (B,)}. Returns (logits, caches)."""
-        x = params["embed"][batch["token"]][:, None, :]  # (B,1,d)
+        x = _lookup(params["embed"], batch["token"])[:, None, :]  # (B,1,d)
         h, new_caches, _ = stack_apply(
             params["stack"], x, self._ctx(batch, "decode"), self.cfg, caches
         )

@@ -13,17 +13,41 @@ deterministic, where a scatter-add (``index_add_``) would sum in the order
 the card's atomics land.
 
 Splitting the sorted rows by expert needs the group sizes on the host: one
-device-to-host read per MoE layer call, counted in
+device-to-host read per MoE layer call (per shard on a mesh), counted in
 ``_expert_compute.host_syncs`` when the sizes live on the card.
 
-The expert-parallel island (the reference's ``shard_map`` paths) waits for
-``distributed/`` (ROADMAP A20 item 5); an ``ep`` spec raises.
+Expert parallelism (an :class:`EPSpec`) runs the reference's two
+``shard_map`` islands through DTensor's ``local_map``, with the same in and
+out placements and the collectives on the mesh's sub-groups:
+
+* experts sharded over the ``ep`` axis, each expert's ff dim over the FSDP
+  axes; activations sharded over the DP axes and replicated over ``ep``,
+  so no token all-to-all: each shard computes its local experts'
+  contribution and a sum over ``ep`` combines them;
+* the tiny path (decode-scale token counts): weights stay resident, the
+  tokens are all-gathered over the FSDP axes, each shard computes its
+  (experts, ff) slice for all of them, and the sum over ep x FSDP comes
+  back as each shard's own rows (a sum over ``ep``, then a reduce-scatter
+  over the FSDP axes: the reference's psum and slice);
+* the ZeRO path: each local expert's ff slices are all-gathered over the
+  FSDP axes just in time, then one sum over ``ep``.
+
+Gradients are the true ones. An all-gather's backward is a reduce-scatter
+of sums and the reverse; the sum over ``ep`` is replicated, so its
+backward is the identity; the router's gradient comes out partial over
+every mesh axis, the tokens' over ``ep``, and the shared expert's over the
+DP axes, and ``local_map`` hands them back so (``in_grad_placements``).
+``aux`` is the mean over DP and ``ep`` of each shard's own term, as in
+the reference.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import Tensor
 
@@ -31,6 +55,16 @@ from .config import ModelConfig, MoEConfig
 from .layers import _init, mlp_apply, mlp_init
 
 Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class EPSpec:
+    """How the MoE island maps onto the mesh (None => local path)."""
+
+    mesh: Any  # torch.distributed.device_mesh.DeviceMesh
+    ep_axis: str = "model"
+    fsdp_axes: tuple[str, ...] = ("data",)
+    dp_axes: tuple[str, ...] = ("pod", "data")
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
@@ -114,13 +148,170 @@ def _dispatch_compute(
     return y.reshape(t, k, -1).sum(1)
 
 
-def moe_apply(p: Params, x: Tensor, cfg: ModelConfig, ep: Any = None) -> tuple[Tensor, Tensor]:
-    """x (B,S,d) -> (y (B,S,d), aux loss scalar), on the local path."""
+def _group(mesh, axes: tuple[str, ...]):
+    """The process group over mesh ``axes`` (several: the flattened
+    sub-mesh, whose ranks run row-major over the axes, as JAX orders them)."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+class _SumReplicated(torch.autograd.Function):
+    """All-reduce (sum) over ``group`` whose output is used replicated: its
+    backward is the identity (the cotangent is already the same on every
+    rank of the group)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, group) -> Tensor:
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return g, None
+
+
+def _psum(x: Tensor, mesh, axes: tuple[str, ...]) -> Tensor:
+    for a in axes:
+        x = _SumReplicated.apply(x, mesh.get_group(a))
+    return x
+
+
+class _AllGather(torch.autograd.Function):
+    """Tiled all-gather along ``dim`` over ``group``; backward: the
+    reduce-scatter of sums."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, dim: int, group) -> Tensor:
+        ctx.dim, ctx.group = dim, group
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((dist.get_world_size(group) * xt.shape[0],) + xt.shape[1:])
+        dist.all_gather_into_tensor(out, xt, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return _ReduceScatter.apply(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum over ``group``, each rank keeping its slice of ``dim``; backward:
+    the all-gather."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, dim: int, group) -> Tensor:
+        ctx.dim, ctx.group = dim, group
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((xt.shape[0] // dist.get_world_size(group),) + xt.shape[1:])
+        dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return _AllGather.apply(g, ctx.dim, ctx.group), None, None
+
+
+def _all_gather(x: Tensor, mesh, axes: tuple[str, ...], dim: int) -> Tensor:
+    return _AllGather.apply(x, dim, _group(mesh, axes))
+
+
+def _reduce_scatter(x: Tensor, mesh, axes: tuple[str, ...], dim: int) -> Tensor:
+    return _ReduceScatter.apply(x, dim, _group(mesh, axes))
+
+
+def _mesh_placements(mesh, shard: dict, partial: tuple[str, ...] = ()) -> tuple:
+    """One placement per mesh dim: ``Shard(shard[axis])``, ``Partial()`` for
+    an axis in ``partial``, else ``Replicate()``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    return tuple(Shard(shard[a]) if a in shard else Partial() if a in partial else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def _moe_ep(p: Params, x: Tensor, cfg: ModelConfig, ep: EPSpec) -> tuple[Tensor, Tensor]:
+    """The expert-parallel island over ``ep.mesh``: x (B,S,d) -> (y, aux)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mc = cfg.moe
+    mesh = ep.mesh
+    b, s, d = x.shape
+    size = lambda a: mesh.size(mesh.mesh_dim_names.index(a))
+    ep_size = size(ep.ep_axis)
+    n_local = mc.n_experts // ep_size
+    # per-shard capacity for its local experts' assignments
+    dp = math.prod(size(a) for a in ep.dp_axes if a in mesh.mesh_dim_names)
+    t_local = max(b // dp, 1) * s
+    tiny = t_local * mc.top_k <= 4096
+    if tiny:
+        cap = t_local * mc.top_k  # tiny buffers (decode): never drop
+    else:
+        cap = int(t_local * mc.top_k / ep_size * mc.capacity_factor) + 1
+        cap = min(cap, t_local * mc.top_k)
+    fsdp, dpx, ea = ep.fsdp_axes, ep.dp_axes, ep.ep_axis
+    offset = mesh.get_local_rank(ea) * n_local
+    tiny = tiny and len(fsdp) > 0
+
+    def island(x_l, router, w_gate_l, w_up_l, w_down_l, *shared_l):
+        x2d_l = x_l.reshape(-1, d)  # each rank's rows, batch-major as the reference's
+        if tiny:
+            # weights stay resident; the tokens come to them over the FSDP
+            # axes, and each rank's (experts, ff) slice gives a partial sum
+            x_all = _all_gather(x2d_l, mesh, fsdp, 0)  # (T_all, d)
+            weights, experts, aux = _route(x_all, router, mc)
+            y = _dispatch_compute(x_all, weights, experts, n_local, offset,
+                                  x_all.shape[0] * mc.top_k, w_gate_l, w_up_l, w_down_l)
+            y = _reduce_scatter(_psum(y, mesh, (ea,)), mesh, fsdp, 0)  # own rows
+        else:
+            # ZeRO-3: gather the local experts' ff slices just in time
+            w_gate = _all_gather(w_gate_l, mesh, fsdp, 2)
+            w_up = _all_gather(w_up_l, mesh, fsdp, 2)
+            w_down = _all_gather(w_down_l, mesh, fsdp, 1)
+            weights, experts, aux = _route(x2d_l, router, mc)
+            y = _dispatch_compute(x2d_l, weights, experts, n_local, offset, cap,
+                                  w_gate, w_up, w_down)
+        if shared_l:
+            # shared slices are ff-sharded over ep only (FSDP-replicated);
+            # the rank's own rows are the reference's slice of x_all's
+            sh = mlp_apply(dict(zip(("w_gate", "w_up", "w_down"), shared_l)), x2d_l)
+            y = y + _psum(sh, mesh, (ea,)) if tiny else y + sh
+        if not tiny:
+            y = _psum(y, mesh, (ea,))
+        axes = tuple(a for a in dpx + (ea,) if a in mesh.mesh_dim_names)
+        aux = _psum(aux, mesh, axes) / math.prod(size(a) for a in axes)
+        return y.reshape(x_l.shape), aux
+
+    dp_in = {a: 0 for a in dpx if a in mesh.mesh_dim_names}
+    w_in = dict({a: 2 for a in fsdp}, **{ea: 0})
+    wd_in = dict({a: 1 for a in fsdp}, **{ea: 0})
+    in_pl = [_mesh_placements(mesh, dp_in), _mesh_placements(mesh, {}),
+             _mesh_placements(mesh, w_in), _mesh_placements(mesh, w_in),
+             _mesh_placements(mesh, wd_in)]
+    grad_pl = [_mesh_placements(mesh, dp_in, (ea,)),
+               _mesh_placements(mesh, {}, tuple(mesh.mesh_dim_names))] + in_pl[2:]
+    args = [x, p["router"], p["w_gate"], p["w_up"], p["w_down"]]
+    if mc.n_shared:
+        sh = p["shared"]
+        args += [sh["w_gate"], sh["w_up"], sh["w_down"]]
+        for spec in ({ea: 1}, {ea: 1}, {ea: 0}):
+            in_pl.append(_mesh_placements(mesh, spec))
+            grad_pl.append(_mesh_placements(mesh, spec, tuple(dp_in)))
+    y, aux = local_map(
+        island,
+        out_placements=(_mesh_placements(mesh, dp_in), _mesh_placements(mesh, {})),
+        in_placements=tuple(in_pl),
+        in_grad_placements=tuple(grad_pl),
+        device_mesh=mesh,
+        redistribute_inputs=True,
+    )(*args)
+    return y, aux
+
+
+def moe_apply(p: Params, x: Tensor, cfg: ModelConfig, ep: EPSpec | None = None) -> tuple[Tensor, Tensor]:
+    """x (B,S,d) -> (y (B,S,d), aux loss scalar): the local path, or the
+    expert-parallel island under ``ep``."""
     if ep is not None:
-        raise NotImplementedError(
-            "the MoE expert-parallel island waits for distributed/ (ROADMAP A20 item 5); "
-            "the port runs the local path (ep=None)"
-        )
+        return _moe_ep(p, x, cfg, ep)
     mc = cfg.moe
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)

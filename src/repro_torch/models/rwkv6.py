@@ -22,6 +22,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.blocks import local_blocks, split_last
 
 from .config import ModelConfig
 from .layers import _init
@@ -78,7 +81,11 @@ def _token_shift(x: Tensor, prev: Tensor | None) -> Tensor:
 
 def _wkv_step(r_t, k_t, v_t, w_t, u, s):
     """One step of the recurrence on float32 (B,H,hd) rows and state
-    (B,H,hd,hd): returns (o_t (B,H,hd), the next state)."""
+    (B,H,hd,hd): returns (o_t (B,H,hd), the next state). On a mesh, on each
+    rank's (batch, head) block."""
+    if isinstance(r_t, DTensor):
+        return local_blocks(_wkv_step, (r_t, k_t, v_t, w_t, u, s),
+                            [(0, 1)] * 4 + [(None, 0), (0, 1)], [(0, 1), (0, 1)])
     kv = k_t[..., :, None] * v_t[..., None, :]
     o_t = torch.einsum("bhk,bhkv->bhv", r_t, s + u[None, :, :, None] * kv)
     return o_t, w_t[..., None] * s + kv
@@ -88,8 +95,13 @@ def _wkv_scan(r, k, v, w, u, state0):
     """Sequential WKV recurrence.
 
     r,k,w: (B,S,H,hd); v: (B,S,H,hd); state0 (B,H,hd,hd) f32.
-    Returns (o (B,S,H,hd) f32, final state).
+    Returns (o (B,S,H,hd) f32, final state). On a mesh the loop runs on each
+    rank's (batch, head) block, paying DTensor's host cost once, not once a
+    token.
     """
+    if isinstance(r, DTensor):
+        return local_blocks(_wkv_scan, (r, k, v, w, u, state0),
+                            [(0, 2)] * 4 + [(None, 0), (0, 1)], [(0, 2), (0, 1)])
     rs, ks, vs, ws = (t.float().movedim(1, 0).contiguous() for t in (r, k, v, w))
     s, outs = state0, []
     for t in range(rs.shape[0]):
@@ -114,12 +126,12 @@ def rwkv_apply(
     xprev = _token_shift(h1, prev_tm)
     mix = p["mix"][:, None, None, :]  # (5,1,1,d)
     xr, xk, xv, xw, xg = (h1 * m + xprev * (1 - m) for m in mix)
-    r = (xr @ p["w_r"]).reshape(b, s, n_h, hd)
-    k = (xk @ p["w_k"]).reshape(b, s, n_h, hd)
-    v = (xv @ p["w_v"]).reshape(b, s, n_h, hd)
+    r = split_last(xr @ p["w_r"], n_h, hd)
+    k = split_last(xk @ p["w_k"], n_h, hd)
+    v = split_last(xv @ p["w_v"], n_h, hd)
     g = F.silu(xg @ p["w_g"])
     decay = p["decay_w0"] + torch.tanh(xw @ p["decay_a"]) @ p["decay_b"]
-    w = torch.exp(-torch.exp(decay.float())).reshape(b, s, n_h, hd)
+    w = split_last(torch.exp(-torch.exp(decay.float())), n_h, hd)
 
     state0 = (
         cache["state"]

@@ -39,6 +39,8 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from repro_torch.distributed.blocks import split_last
+
 from .config import ModelConfig
 from .layers import (
     Ctx,
@@ -154,7 +156,7 @@ def block_apply(
         new_cache = {"self": new_self}
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if _mlp_kind(kind) == "moe":
-        y, aux = moe_apply(p["moe"], h, cfg)
+        y, aux = moe_apply(p["moe"], h, cfg, ctx.ep)
     else:
         y, aux = mlp_apply(p["mlp"], h), 0.0  # no launch for a zero
     return x + y, new_cache, aux
@@ -166,9 +168,9 @@ def _bidirectional_attn(p: Params, h: Tensor, cfg: ModelConfig) -> Tensor:
     all-true mask, as in the reference."""
     b, t, _ = h.shape
     hh, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = (h @ p["wq"]).reshape(b, t, hh, hd)
-    k = (h @ p["wk"]).reshape(b, t, kh, hd)
-    v = (h @ p["wv"]).reshape(b, t, kh, hd)
+    q = split_last(h @ p["wq"], hh, hd)
+    k = split_last(h @ p["wk"], kh, hd)
+    v = split_last(h @ p["wv"], kh, hd)
     pos = torch.arange(t, device=h.device)[None, :].expand(b, t)
     cos, sin = rope_angles(pos, hd, cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)

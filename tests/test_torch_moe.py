@@ -131,11 +131,30 @@ def test_moe_apply_gradient_matches_jax_grad(n_shared):
 
 
 def test_expert_parallel_island_raises_naming_a20():
+    """The island no longer raises: on the local (1, 1) mesh it gives the
+    local path's output and aux loss (both of its paths; the gloo world of
+    four is ``test_torch_moe_ep.py``'s)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed.sharding import placements, spec_for_leaf
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.tree import unflatten_like
+
     cfg = _cfg()
     _, p = _params(cfg)
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="A20"):
-        moe.moe_apply(p, x, cfg, ep=object())
+    mesh = make_local_mesh("cpu")
+    ep = moe.EPSpec(mesh=mesh, ep_axis="model", fsdp_axes=("data",), dp_axes=("data",))
+    placed = unflatten_like(p, {
+        k: distribute_tensor(v, mesh, placements(spec_for_leaf("['moe']" + k, v, mesh), mesh))
+        for k, v in flatten_with_keys(p)})
+    for t in (4, 1100):  # t * top_k <= 4096: the tiny path; above: ZeRO
+        x = torch.from_numpy(_x(t, t, cfg.d_model)).reshape(1, t, -1)
+        y, aux = moe.moe_apply(p, x, cfg)
+        y_ep, aux_ep = moe.moe_apply(placed, distribute_tensor(x, mesh, [Shard(0), Replicate()]),
+                                     cfg, ep=ep)
+        assert isinstance(y_ep, DTensor)
+        _close(y_ep.full_tensor(), y.numpy(), 1e-6)
+        _close(aux_ep.full_tensor(), aux.numpy(), 1e-7)
 
 
 def test_host_syncs_are_counted_only_for_the_card():
