@@ -238,10 +238,10 @@ Phases, each raising on failure:
    12a. ``examples/train_lm.py``'s flow at full width: ``train("smollm-135m",
        smoke=False)`` on the (1, 1) mesh (each step through
        ``jit_train_step``; a save gathers the state, a restore places it),
-       cut in depth to ``TRAIN_DEPTH``, 8 of 30 layers (DTensor's host cost
+       cut in depth to ``TRAIN_DEPTH``, 6 of 30 layers (DTensor's host cost
        sets a step's wall), float32, batch 8 x seq 64, lr 3e-3 on
        the cosine schedule, for TRAIN's 600 steps, the whole TrainState
-       (parameters and both AdamW moments, 0.68 GB) planned by JLCM as 25
+       (parameters and both AdamW moments, 0.68 GB at 8 layers) planned by JLCM as 25
        files and saved through the EC store every 200 steps; the first group's first
        storage node fails at step 500, after the last save; then a
        ``resume=True`` run restores step 400 from the degraded store and
@@ -352,6 +352,24 @@ Phases, each raising on failure:
    sets compared token by token. Every B4 call is held to its twin as it
    is made; each step's wall is printed sharded and unsharded (DTensor's
    host cost per op), with the peak memory and the NCCL version.
+18. The dry-run and the roofline; a fleet and the rollout lanes over two
+   devices. 18a and 18b's dry-runs (``start_dryruns``, started before phase
+   13) run as ``python -m repro_torch.launch.dryrun`` processes with no
+   card visible, each in its own fake world: 18a SmolLM-135M and
+   Qwen3-MoE-30B-A3B at train_4k on the (16, 16) mesh at O2 (every record
+   ``ok``; the roofline terms printed); 18b ``DRYRUN_18B``'s SmolLM-135M
+   bfloat16 O2 train step on a (1, 1) fake mesh, then run for real on the
+   card's (1, 1) NCCL mesh: the estimate of bytes a card beside
+   ``max_memory_allocated``, the bound beside the measured wall (gate: the
+   bound may not exceed it), MFU and the roofline fraction by the
+   reference's definitions; every B4 call held (bfloat16: within 3e-2 +
+   2^-7 x |twin|, one rounding of its output). 18c phase 4's plan
+   simulated by 7 seeds over [cuda:0, cuda:0]
+   (``simulator._simulate_fleet_on``), materialized and streaming in 2
+   chunks, bitwise per seed to the one-device fleet; 18d
+   ``router._batched_rollout_scores_on`` over [cuda:0, cuda:0] at
+   replan_wall's shapes, scores bitwise and ``best`` equal to the
+   one-device program's; one B1 launch a device, every B1 call held.
 
 The bounds (``bound``, ``gf_bound``, ``flash_bound``) are the least time
 the card could take for the work: each input read once and each output
@@ -369,7 +387,7 @@ The probes' measurements are printed beside these bounds and are not
 bounds themselves: they say what this card reaches, not what it cannot
 beat.
 
-In phases 3 to 17 (4b included) every launch count is set to 0 just before
+In phases 3 to 18 (4b included) every launch count is set to 0 just before
 each main-path call (simulator, encode, decode, prefill, serving simulation,
 replan, scenario run, checkpoint save and restore, training run, loss and
 gradients, forward) and read just after; each call must have launched its
@@ -392,6 +410,7 @@ import ctypes
 import dataclasses
 import io
 import json
+import math
 import multiprocessing
 import os
 import shutil
@@ -425,6 +444,7 @@ from repro_torch.core import (  # noqa: E402
     materialize,
     mean_latency_bound,
     node_arrival_rates,
+    project_capped_simplex,
     proportional_lb_pi,
     random_placement_mask,
     resolve_incremental,
@@ -460,6 +480,8 @@ from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS  # noqa: E402
+from repro_torch.launch.specs import batch_specs_for  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     TrainState,
     build_model,
@@ -474,6 +496,7 @@ from repro_torch.launch.steps import (  # noqa: E402
 from repro_torch.distributed.sharding import param_shardings  # noqa: E402
 from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
 from repro_torch.models import lm, moe, rglru, rwkv6  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.stack import _mlp_kind  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -645,7 +668,8 @@ TRAIN = dict(steps=600, ckpt_every=200, fail_node_at=500, batch=8, seq=64, lr=3e
 # train() runs on the (1, 1) mesh, where DTensor's host cost per op sets the
 # step's wall; 12a cuts SmolLM-135M's depth to TRAIN_DEPTH of its 30 layers
 # (by patching train()'s get_config for the call) to keep the script in time
-TRAIN_DEPTH = 8
+# (8 until phase 18 came: 158-210 s of 12a, host-bound)
+TRAIN_DEPTH = 6
 TRAIN_LOSS_DROP = 0.5  # examples/train_lm.py's assertion, in both runs
 # 12b: one batch of SmolLM-135M's published 2048-token context, batch 2,
 # through O0 (naive attention, dense CE), O2 (B4 under autograd, chunked CE)
@@ -711,6 +735,17 @@ SHARD_TRAIN = dict(batch=GRAD_BATCH, seq=GRAD_SEQ, steps=3, lr=TRAIN["lr"],
 SHARD_SERVE = dict(batch=SERVE["batch"], prompt=SERVE["prompt_len"], steps=SERVE["gen_len"])
 SHARD_MOE = "qwen3-moe-30b-a3b"
 SHARD_RTOL, SHARD_ATOL, SHARD_MOE_ATOL = 1e-6, 1e-5, 2e-5
+# phase 18: the dry-run (its own processes and fake worlds, never the card)
+# and the multi-device fleet and lanes. 18a: one dense and one MoE cell of
+# the sweep; 18b: one cell the card runs whole, SmolLM-135M in bfloat16 at O2
+# on the (1, 1) mesh; 18c: an odd seed count over [cuda:0, cuda:0], the
+# materialized fleet at N requests and a streaming one of 2 chunks; 18d:
+# replan_wall's candidates x draws (and an odd 5) through the lanes
+DRYRUN_18A = ["--arch", "smollm-135m,qwen3-moe-30b-a3b", "--shape", "train_4k",
+              "--mesh", "single", "--opt", "O2", "--jobs", "2"]
+DRYRUN_18B = dict(arch="smollm-135m", batch=8, seq=2048, opt="O2", steps=3)
+FLEET_SHARD = dict(n_seeds=7, n_requests=20_000, stream_requests=10_000, n_chunks=2)
+LANE_CASES = ((8, 1), (16, 2), (5, 2))
 PAPER_FIG6 = dict(mean=13.9, std=4.3, m2=211.8, m3=3476.8)  # measured (paper Fig. 6)
 MMA_BLOCKS_PER_SM, MMA_ITERS = 4, 4096  # the mma probe's grid and length
 LDS_BLOCKS_PER_SM, LDS_ITERS = 2, 1000  # the lookup probe's grid (512 threads) and length
@@ -3653,11 +3688,12 @@ def phase_grad(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def plain_errors(args, kwargs, out, slices: int = 1) -> list:
+def plain_errors(args, kwargs, out, slices: int = 1, rtol: float = 0.0) -> list:
     """|out - plain twin| at most, for each of ``slices`` slices of the KV
     heads (with their query heads): the twin run a slice at a time, each
     on the call's own inputs, since a head's attention reads only its own
-    rows."""
+    rows. With ``rtol``, each difference less ``rtol`` x |twin| (bfloat16:
+    one rounding of the output, its ulp, 2^-7 of it at most)."""
     q, k, v = args
     kh = k.shape[2]
     g, step = q.shape[2] // kh, -(-kh // slices)
@@ -3665,26 +3701,28 @@ def plain_errors(args, kwargs, out, slices: int = 1) -> list:
     for j in range(0, kh, step):
         heads = slice(j * g, (j + step) * g)
         want = fa.flash_attention_plain(q[:, :, heads], k[:, :, j:j + step], v[:, :, j:j + step],
-                                        **kwargs)
-        errs.append(float((out[:, :, heads].float() - want.float()).abs().max()))
+                                        **kwargs).float()
+        diff = (out[:, :, heads].float() - want).abs()
+        errs.append(float((diff - rtol * want.abs()).max() if rtol else diff.max()))
     return errs
 
 
 @contextlib.contextmanager
-def held_flash(atol: float = 2e-5, slices: int = 1, keep: str = "last"):
+def held_flash(atol: float = 2e-5, slices: int = 1, keep: str = "last", rtol: float = 0.0):
     """Hold every B4 call a main path makes against the plain twin as it is
-    made (``plain_errors`` over ``slices`` slices of the heads), and keep
-    only its error: at Phi-4-mini's width the 288 calls of serving hold 76
-    GB of inputs and outputs. The record keeps the count, the worst error,
-    the twin's time on the last call and, under "last", the last call
-    (``keep="first"``: the first)."""
+    made (``plain_errors`` over ``slices`` slices of the heads; with
+    ``rtol``, each call within atol + rtol x |twin|), and keep only its
+    error: at Phi-4-mini's width the 288 calls of serving hold 76 GB of
+    inputs and outputs. The record keeps the count, the worst error (over
+    rtol x |twin| where ``rtol`` is set), the twin's time on the last call
+    and, under "last", the last call (``keep="first"``: the first)."""
     fn = fa.flash_attention
     record = dict(calls=0, max_abs_err=0.0, plain_ms=0.0, last=None)
 
     def holder(*args, **kwargs):
         out = fn(*args, **kwargs)
-        record["plain_ms"], errs = cuda_ms(lambda: plain_errors(args, kwargs, out, slices),
-                                           reps=1)
+        record["plain_ms"], errs = cuda_ms(
+            lambda: plain_errors(args, kwargs, out, slices, rtol), reps=1)
         err = max(errs)
         if not all(e <= atol for e in errs):
             raise AssertionError(f"B4 {tuple(args[0].shape)} differs from plain twin by {errs}")
@@ -4612,6 +4650,245 @@ def phase_sharded(dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the dry-run and the roofline; a fleet's seeds and the rollout
+# lanes over two devices.
+# ---------------------------------------------------------------------------
+
+
+def start_dryruns() -> dict:
+    """18a's and 18b's dry-runs, started before phase 13, one
+    ``python -m repro_torch.launch.dryrun`` process each (its own fake
+    world: the script's NCCL world cannot host one), with no card visible:
+    the dry-run runs on fake tensors and launches nothing. Each writes its
+    records to ``build/dryrun_18*.json`` and its lines to a log there."""
+    import atexit
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="")
+    n = DRYRUN_18B
+    args = {"18a": DRYRUN_18A,
+            "18b": ["--arch", n["arch"], "--shape", f"train:{n['batch']}x{n['seq']}",
+                    "--mesh", "1x1", "--opt", n["opt"]]}
+    started = {}
+    for tag, extra in args.items():
+        out, log = root / "build" / f"dryrun_{tag}.json", root / "build" / f"dryrun_{tag}.log"
+        out.unlink(missing_ok=True)
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *extra,
+                                 "--out", str(out)], cwd=root, env=env,
+                                stdout=log.open("w"), stderr=subprocess.STDOUT)
+        atexit.register(proc.kill)  # no process outlives the script
+        started[tag] = (proc, out, log, time.perf_counter())
+    return started
+
+
+def dryrun_records(tag: str, started: dict) -> list:
+    """A started dry-run's records, once it has exited; its lines printed.
+    Fails on a failed process or any record not ``ok``."""
+    proc, out, log, t0 = started[tag]
+    rc = proc.wait()
+    print(log.read_text(), end="")
+    print(f"[{tag}] dry-run process exit {rc}, {time.perf_counter() - t0:.1f} s after its start")
+    records = json.loads(out.read_text()) if out.exists() else []
+    for rec in records:
+        if rec["status"] != "ok":
+            print(rec.get("trace", ""))
+            raise AssertionError(f"{tag}: {rec['arch']} x {rec['shape']} {rec['status']}: "
+                                 f"{rec.get('error', rec.get('reason'))}")
+    if rc != 0 or not records:
+        raise AssertionError(f"{tag}: the dry-run failed (exit {rc}); see {log}")
+    for rec in records:
+        r = rec["roofline"]
+        print(f"[{tag}] {rec['arch']} x {rec['shape']} x {rec['mesh']} x {rec['opt']}: "
+              f"{rec['per_device_bytes'] / 1e9:.3f} GB a card (fits 80 GB: "
+              f"{rec['fits_h100_80g']}); compute {r['compute_s']:.6g} s, memory "
+              f"{r['memory_s']:.6g} s (pre-fusion {r['memory_prefusion_s']:.6g}), collective "
+              f"{r['collective_s']:.6g} s -> {r['dominant']}, bound {r['bound_step_s']:.6g} s; "
+              f"{rec['raw']['flops']:.6g} FLOP a card, MoE excess "
+              f"{rec['moe_cpu_excess_flops']:.6g}, B4 I/O {rec['flash_io_bytes']:.6g} B; "
+              f"roofline fraction {rec['roofline_fraction']:.4%}; counted in "
+              f"{rec['wall_s']} s")
+    return records
+
+
+def roofline_check(dev, rec: dict) -> dict:
+    """18b: DRYRUN_18B's train step run for real on the card's (1, 1) mesh,
+    beside its dry-run: the estimate of bytes a card against
+    ``max_memory_allocated``, the bound against the measured wall (the
+    gate: a bound above a measured time means the count or the peaks are
+    wrong), and the wall's share of the model FLOPs at peak (MFU)."""
+    n = DRYRUN_18B
+    cfg = get_config(n["arch"])
+    mesh = make_local_mesh(dev)
+    model = build_model(cfg, mesh, dtype=torch.bfloat16, remat="dots", opt=n["opt"],
+                        device=dev)
+    opt = AdamW(lr=1e-4)
+    shape = ShapeConfig(rec["shape"], n["seq"], n["batch"], "train")
+    step, _, state_sh, _ = jit_train_step(model, opt, mesh, batch_specs_for(cfg, shape))
+    params = model.init(torch.Generator(device=dev).manual_seed(GRAD_SEED))
+    state = place(TrainState(params, opt.init(params)), state_sh)
+    del params
+    gen = torch.Generator(device=dev).manual_seed(GRAD_SEED + 18)
+    batch = lambda: {"tokens": torch.randint(0, cfg.vocab, (n["batch"], n["seq"]),
+                                             generator=gen, device=dev, dtype=torch.int32)}
+    walls, launches, losses = [], 0, []
+    # bfloat16: phase 2c's bf16 atol, and one rounding of outputs above 4
+    with held_flash(atol=3e-2, rtol=2.0**-7) as held:
+        state, _ = step(state, batch())  # DTensor's first call of each op and shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n["steps"]):
+            b = batch()
+            ((state, metrics), b4), wall = sync_wall(lambda: counted(
+                f"18b train step {i + 1}", lambda: step(state, b), "flash_attention"))
+            walls.append(wall)
+            launches += b4
+            losses.append(float(gather(metrics["loss"])))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"18b: losses {losses}")
+    wall = float(np.median(walls))
+    r = rec["roofline"]
+    bound, chips = r["bound_step_s"], 1
+    mfu = rec["model_flops"] / chips / PEAK_FLOPS / wall
+    est = rec["per_device_bytes"]
+    print(f"[18b] {n['arch']} bfloat16 {n['opt']} train step {n['batch']} x {n['seq']} on the "
+          f"(1, 1) mesh: walls {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms (median "
+          f"{wall * 1e3:.1f}), losses {', '.join(f'{x:.4f}' for x in losses)}, {launches} B4 "
+          f"launches, {held['calls']} B4 calls held (largest difference over 2^-7 x |twin|: "
+          f"{held['max_abs_err']:.3g}, atol 3e-2)")
+    print(f"[18b] bytes a card: dry-run estimate {est / 1e9:.3f} GB, measured "
+          f"max_memory_allocated {peak / 1e9:.3f} GB: estimate / measured "
+          f"{est / peak:.3f}")
+    print(f"[18b] bound {bound * 1e3:.3f} ms ({r['dominant']}: compute "
+          f"{r['compute_s'] * 1e3:.3f}, memory {r['memory_s'] * 1e3:.3f}, collective "
+          f"{r['collective_s'] * 1e3:.3f} ms) against the measured wall {wall * 1e3:.1f} ms: "
+          f"bound / wall {bound / wall:.4f}; mfu {mfu:.4%} (model FLOPs "
+          f"{rec['model_flops']:.4g} at {PEAK_FLOPS / 1e12:.1f} TFLOP/s), roofline_fraction "
+          f"{rec['roofline_fraction']:.4%}")
+    if not bound <= wall:
+        raise AssertionError(f"18b: the bound {bound} s exceeds the measured wall {wall} s")
+    return dict(launches=launches, max_abs_err=held["max_abs_err"], wall=wall, bound=bound,
+                est=est, peak=peak, mfu=mfu)
+
+
+def fleets_equal(got, want, label: str) -> None:
+    for field in ("latency", "file_id", "site_id", "node_busy", "hit", "hit_count"):
+        g, w = getattr(got, field), getattr(want, field)
+        if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+            raise AssertionError(f"{label}: {field} differs from the one-device fleet")
+    for part in ("stream", "windows"):
+        g, w = getattr(got, part), getattr(want, part)
+        if (g is None) != (w is None) or (g is not None and not all(
+                torch.equal(a, b) for a, b in zip(g, w))):
+            raise AssertionError(f"{label}: {part} differs from the one-device fleet")
+
+
+def fleet_shard(dev, sol) -> tuple[int, float]:
+    """18c: phase 4's plan simulated by an odd seed count over
+    [cuda:0, cuda:0] (``simulator._simulate_fleet_on``: the seeds padded to
+    a multiple of 2, one B1 launch a device; streaming, one a device and
+    chunk, each device's queue state carried), bitwise per seed to the
+    one-device fleet from the same generator seed; every B1 call held."""
+    cluster = tahoe_testbed(device=dev)
+    lam, _, chunk = paper_catalog(1000, device=dev)
+    eff_chunk = float(np.average(chunk, weights=lam.cpu().numpy()))
+    fabric = GeoFabric.single_site(cluster)
+    n = FLEET_SHARD
+    gen = lambda: torch.Generator(device=dev).manual_seed(18)
+    launches, calls = 0, []
+    for label, kw, size, per_run in (
+            ("materialized", {}, n["n_requests"], 2),
+            (f"streaming, {n['n_chunks']} chunks",
+             dict(stream=True, n_chunks=n["n_chunks"], keep_latency=True), n["stream_requests"],
+             2 * n["n_chunks"])):
+        args = (sol.pi, lam[None], fabric, eff_chunk, size, n["n_seeds"])
+        with recorded(simulator, "fcfs_scan") as c:
+            (one, l1), w1 = sync_wall(lambda: counted(
+                f"18c one-device fleet ({label})",
+                lambda: simulate_fleet(gen(), *args, devices="never", **kw)))
+            (two, l2), w2 = sync_wall(lambda: counted(
+                f"18c fleet over two devices ({label})",
+                lambda: simulator._simulate_fleet_on([dev, dev], gen(), *args, **kw),
+                least=per_run))
+        fleets_equal(two, one, f"18c {label}")
+        if l2 != per_run:
+            raise AssertionError(f"18c {label}: {l2} B1 launches, expected {per_run}")
+        launches += l1 + l2
+        calls += c
+        rows = sorted({tuple(call[0][0].shape) for call in c})
+        print(f"[18c] {label}: {n['n_seeds']} seeds x {size} requests over [cuda:0, cuda:0] "
+              f"(padded to {n['n_seeds'] + n['n_seeds'] % 2}) == one device, bitwise per "
+              f"seed (mean {float(one.mean_latency()):.4f} s); B1 launches {l2} sharded, {l1} "
+              f"one device, at {rows}; walls {w2 * 1e3:.1f} / {w1 * 1e3:.1f} ms")
+    return launches, hold_grouped(calls, "18c", dev)
+
+
+def rollout_lanes(dev) -> tuple[int, float]:
+    """18d: ``batched_rollout_scores``' lanes over [cuda:0, cuda:0]
+    (``router._batched_rollout_scores_on``) at replan_wall's shapes, held
+    to the one-device program: scores bitwise, ``best`` equal, one B1
+    launch a device; every B1 call held."""
+    cl = tahoe_testbed(device=dev)
+    r, chunk = len(WALL_LAM), WALL_FILE_MB / WALL_K
+    d, rates = cl.service_params(chunk)
+    lam = on_card(WALL_LAM, dev)
+    avail = torch.ones(NODES, dtype=torch.bool, device=dev)
+    carry = init_carry(NODES, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    launches, calls = 0, []
+    for n_cand, n_draws in LANE_CASES:
+        pi = torch.stack([project_capped_simplex(
+            torch.rand((r, NODES), generator=gen, device=dev),
+            torch.full((r,), WALL_K, device=dev)) for _ in range(n_cand)])
+        cost = torch.rand((n_cand,), generator=gen, device=dev)
+        draws = segment_draws(gen, lam[None], WALL_REQUESTS, NODES, n_draws)
+        kw = dict(n_clients=r, n_requests=WALL_REQUESTS, rollout_seeds=n_draws, draws=draws)
+        args = (carry, None, pi, lam, d, rates, avail, cost, None)
+        with recorded(simulator, "fcfs_scan") as c:
+            (want, want_best), l1 = counted(
+                f"18d one device {n_cand}x{n_draws}",
+                lambda: batched_rollout_scores(*args, devices="never", **kw))
+            (got, best), l2 = counted(
+                f"18d lanes over two devices {n_cand}x{n_draws}",
+                lambda: router_mod._batched_rollout_scores_on([dev, dev], *args, **kw), least=2)
+        pad = router_mod._lane_pad(n_cand, n_draws, 2)
+        if not (torch.equal(got[:n_cand], want[:n_cand]) and int(best) == int(want_best)
+                and bool(torch.isinf(got[n_cand:]).all()) and l2 == 2 and l1 == 1):
+            raise AssertionError(f"18d {n_cand}x{n_draws}: scores, best ({int(best)} against "
+                                 f"{int(want_best)}) or launches ({l2}) differ")
+        launches += l1 + l2
+        calls += c
+        print(f"[18d] {n_cand} candidates x {n_draws} draw(s) x {WALL_REQUESTS} requests: "
+              f"lanes padded to {pad} x {n_draws} over [cuda:0, cuda:0], B1 at "
+              f"{[tuple(call[0][1].shape) for call in c[1:]]}: scores bitwise the one-device "
+              f"program's, best {int(best)}")
+    return launches, hold_grouped(calls, "18d", dev)
+
+
+def phase_dryrun(dev, started: dict, sol) -> dict:
+    """Phase 18: 18a and 18b's dry-runs collected, 18b's cell run for real,
+    18c's fleet and 18d's lanes over two devices."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dryrun_records("18a", started)
+    (rec,) = dryrun_records("18b", started)
+    torch.cuda.empty_cache()
+    try:
+        check = roofline_check(dev, rec)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    fleet_launches, fleet_err = fleet_shard(dev, sol)
+    lane_launches, lane_err = rollout_lanes(dev)
+    print(f"[18] phase 18 wall {time.perf_counter() - t0:.3f} s (the dry-runs ran beside "
+          f"phases 13 to 17)")
+    return dict(check=check, fleet_launches=fleet_launches, lane_launches=lane_launches,
+                err=max(fleet_err, lane_err))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)  # keep output if the run is cut
@@ -4650,11 +4927,13 @@ def main() -> int:
     training = phase_train(dev, limits)
     grad = phase_grad(dev)
     print(f"[12] phase 12 wall {time.perf_counter() - t12:.3f} s")
+    dryruns = start_dryruns()  # beside phases 13 to 17, after 12a's host-bound steps
     gqa = phase_gqa(dev, limits)
     late = phase_encdec_rwkv(dev, limits)
     mla = phase_mla(dev, limits)
     rg = phase_recurrentgemma(dev, limits)
     sharded = phase_sharded(dev)
+    roof = phase_dryrun(dev, dryruns, sol)
     by_path = {"quickstart_simulate": quick_launches,
                "catalog_simulate_fleet": fleet_launches,
                "figures_simulate": figure_launches,
@@ -4663,7 +4942,9 @@ def main() -> int:
                "geo_simulate_fleet": geo_launches,
                **closed_by_path,
                **control_by_path,
-               **scenario_by_path}
+               **scenario_by_path,
+               "fleet_two_devices": roof["fleet_launches"],
+               "rollout_lanes_two_devices": roof["lane_launches"]}
     kernels = [{
         "name": "fcfs_scan",
         "route": "cuda",
@@ -4673,7 +4954,8 @@ def main() -> int:
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "max_abs_err": max(worst, quick_err, record["max_abs_err"], figure_err,
-                           tenant_err, fleets_err, closed_err, control_err, scenario_err),
+                           tenant_err, fleets_err, closed_err, control_err, scenario_err,
+                           roof["err"]),
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
         "bound_ms": record["bound_ms"],
@@ -4728,7 +5010,8 @@ def main() -> int:
                    f"{RG_ARCH}_forward_prefill": rg["launches"],
                    "sharded_train_O2": sharded["train"]["launches"],
                    "sharded_prefill_O3": sharded["serve"]["launches"],
-                   f"{SHARD_MOE}_ep_forward_prefill": sharded["moe"]["launches"]}
+                   f"{SHARD_MOE}_ep_forward_prefill": sharded["moe"]["launches"],
+                   "dryrun_check_train_bf16_O2": roof["check"]["launches"]}
     phi4, encdec, qk192 = gqa["record"], late["encdec"]["record"], mla["record"]
     hd256 = rg["record"]
     kernels.append({
@@ -4743,6 +5026,9 @@ def main() -> int:
                            phi4["max_abs_err"], encdec["max_abs_err"], qk192["max_abs_err"],
                            rg["serve_max_abs_err"], hd256["max_abs_err"], sharded["max_abs_err"],
                            *(run["max_abs_err"] for run in gqa["models"].values())),
+        # phase 18b's bfloat16 calls, held within 3e-2 + 2^-7 x |twin|: the
+        # largest difference over 2^-7 x |twin|
+        "max_err_over_rtol_bf16": roof["check"]["max_abs_err"],
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Sequence
 
+import torch
 from torch import Tensor
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -70,11 +71,42 @@ def split_last(x: Tensor, *sizes: int) -> Tensor:
     model axis of 2: the product's columns divide, the heads do not) is
     first replicated over those axes, as GSPMD would gather it: DTensor's
     view cannot split a sharded dim unevenly."""
+    return _unsplit_last(x, sizes[0]).reshape(*x.shape[:-1], *sizes)
+
+
+def _unsplit_last(x: Tensor, n: int) -> Tensor:
+    """A DTensor whose last dim is split over mesh axes that do not divide
+    ``n``, replicated over those axes; anything else as it is."""
     if isinstance(x, DTensor):
         last = x.ndim - 1
         on = [i for i, pl in enumerate(x.placements)
               if isinstance(pl, Shard) and pl.dim in (last, -1)]
-        if on and sizes[0] % math.prod(x.device_mesh.size(i) for i in on):
+        if on and n % math.prod(x.device_mesh.size(i) for i in on):
             x = x.redistribute(x.device_mesh, [Replicate() if i in on else pl
                                                for i, pl in enumerate(x.placements)])
-    return x.reshape(*x.shape[:-1], *sizes)
+    return x
+
+
+class _MergedLast(torch.autograd.Function):
+    """The identity, whose backward hands on a gradient that
+    ``merge_last``'s reshape can split back into its ``n`` parts."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, n: int) -> Tensor:
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return _unsplit_last(g, ctx.n), None
+
+
+def merge_last(x: Tensor) -> Tensor:
+    """``x.reshape(*x.shape[:-2], -1)``, (..., n, w) to (..., n * w). Its
+    gradient comes back through the reshape's backward, a split into n
+    parts, which DTensor cannot make of a dim split over axes that do not
+    divide n (9 heads on a model axis of 16, when DTensor has left the
+    gradient sharded on d): such a gradient is first replicated over them,
+    as ``split_last`` does in the forward."""
+    n = x.shape[-2]
+    return _MergedLast.apply(x.reshape(*x.shape[:-2], -1), n)

@@ -66,6 +66,23 @@ def chunked_sdpa(
     return run(q, k, v)
 
 
+def _stub_core(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    g = q.shape[2] // v.shape[2]
+    return torch.repeat_interleave(v, g, dim=2) + 0.0 * q[..., :v.shape[-1]]
+
+
+def stub_sdpa(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """The dry-run's roofline probe in place of the attention core: v
+    repeated over each KV head's query group, plus ``0 * q`` (its first
+    vd columns), as the reference's ``attn_impl="stub"``. The projections
+    around it stay, so a run with the stub counts everything but the core,
+    whose device cost the dry-run adds back analytically. On a mesh it runs
+    where the core runs, on each rank's block."""
+    if isinstance(q, DTensor):
+        return on_local_blocks(_stub_core, q, k, v)
+    return _stub_core(q, k, v)
+
+
 def on_local_blocks(run, q: Tensor, k: Tensor, v: Tensor, *rest: Tensor) -> Tensor:
     """``run(q, k, v, *rest)`` on each rank's block of DTensors
     (``distributed.blocks.local_blocks``): q, k and v (B, T, heads, width)
@@ -81,9 +98,30 @@ def gather_last(x: Tensor, idx: Tensor) -> Tensor:
     DTensor's ``gather`` over a sharded V leaves a masked partial that it
     cannot reduce once the result is indexed."""
     if isinstance(x, DTensor):
-        hit = idx[..., None] == torch.arange(x.shape[-1], device=x.device)
+        hit = idx[..., None] == _last_dim_index(x)
         return torch.where(hit, x, 0.0).sum(-1)
     return torch.gather(x, -1, idx[..., None])[..., 0]
+
+
+def _last_dim_index(x: DTensor) -> DTensor:
+    """``arange(x.shape[-1])`` split as x splits its last dim, each rank
+    holding its own slice's indices: compared with x's rows it leaves x
+    where it is (a plain arange would be replicated, and x gathered whole
+    to meet it)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    last, mesh = x.ndim - 1, x.device_mesh
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim % x.ndim == last else Replicate()
+          for p in x.placements]
+    start, n, coord = 0, x.shape[-1], mesh.get_coordinate()
+    for i, p in enumerate(pl):  # torch.chunk's split, mesh dim by mesh dim
+        if isinstance(p, Shard):
+            size = -(-n // mesh.size(i))
+            first = min(coord[i] * size, n)
+            start, n = start + first, max(min(size, n - first), 0)
+    local = torch.arange(start, start + n, device=x.to_local().device)
+    return DTensor.from_local(local, x.device_mesh, pl, run_check=False,
+                              shape=(x.shape[-1],), stride=(1,))
 
 
 def chunked_softmax_xent(

@@ -9,8 +9,9 @@ and the device, activations follow. On a mesh the trees hold DTensors and
 the same functions run by DTensor's sharding propagation (the attention
 core on each rank's block, ``attention_opt.on_local_blocks``); ``pin_batch``,
 the reference's GSPMD batch-sharding constraint, re-places a DTensor's
-batch dim on the DP axes. The ``stub`` probe (a roofline decomposition
-for the dry-run) is not ported yet; ``Model`` refuses it.
+batch dim on the DP axes. The ``stub`` probe (``attn_impl="stub"``, the
+dry-run's roofline decomposition) keeps the q/k/v/o projections of train
+and prefill attention and drops its core (``attention_opt.stub_sdpa``).
 """
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ import torch.nn.functional as F
 from torch import Tensor
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.distributed.blocks import split_last
+from repro_torch.distributed.blocks import merge_last, split_last
 
-from .attention_opt import chunked_sdpa, on_local_blocks
+from .attention_opt import chunked_sdpa, on_local_blocks, stub_sdpa
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -39,7 +40,7 @@ class Ctx(NamedTuple):
     decode_pos: Tensor | None = None  # (B,) current write index for decode
     enc_out: Tensor | None = None  # (B, S_enc, d) encoder memory (enc-dec)
     cache_len: int = 0  # static cache capacity S for decode
-    attn_impl: str = "naive"  # "naive" | "chunked" (kernel B4)
+    attn_impl: str = "naive"  # "naive" | "chunked" (kernel B4) | "stub"
     attn_q_blk: int = 1024
     attn_k_blk: int = 1024
     cache_update: str = "onehot"  # "onehot" | "dus"
@@ -260,7 +261,9 @@ def attn_apply(
                 mask &= j > pos[:, None] - window
         y = _sdpa(q, k_cache, v_cache, mask[:, None, :], scale)
     else:  # train / prefill: full causal (optionally windowed) self-attn
-        if ctx.attn_impl == "chunked":
+        if ctx.attn_impl == "stub":
+            y = stub_sdpa(q, k, v)
+        elif ctx.attn_impl == "chunked":
             q, k, v = pin_batch(q, ctx), pin_batch(k, ctx), pin_batch(v, ctx)
             y = pin_batch(chunked_sdpa(
                 q, k, v, scale, causal=True, window=window,
@@ -279,7 +282,7 @@ def attn_apply(
                 s = min(s, window)
             new_cache = {"k": _to_cache_layout(k, s), "v": _to_cache_layout(v, s)}
 
-    return y.reshape(b, t, h * hd) @ p["wo"], new_cache
+    return merge_last(y) @ p["wo"], new_cache
 
 
 # ----------------------------------------------------------------------- MLA
@@ -361,7 +364,9 @@ def mla_apply(
         v = split_last(c_kv @ p["w_uv"], h, vd)
         k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, t, h, rd)], dim=-1)
         q_full = torch.cat([q_nope, q_pe], dim=-1)
-        if ctx.attn_impl == "chunked":
+        if ctx.attn_impl == "stub":
+            out = stub_sdpa(q_full, k_full, v)
+        elif ctx.attn_impl == "chunked":
             q_full, k_full, v = pin_batch(q_full, ctx), pin_batch(k_full, ctx), pin_batch(v, ctx)
             out = pin_batch(chunked_sdpa(
                 q_full, k_full, v, scale, causal=True, window=None,
@@ -375,7 +380,7 @@ def mla_apply(
             s = ctx.cache_len or t
             new_cache = {"ckv": _to_cache_layout(c_kv, s), "kpe": _to_cache_layout(k_pe, s)}
 
-    return out.reshape(b, t, h * vd) @ p["wo"], new_cache
+    return merge_last(out) @ p["wo"], new_cache
 
 
 # ----------------------------------------------------------------------- MLP

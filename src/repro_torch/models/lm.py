@@ -29,7 +29,7 @@ from typing import Any
 
 import torch
 from torch import Tensor
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.distributed.blocks import local_blocks
 
@@ -53,13 +53,38 @@ def _lookup(embed: Tensor, tokens: Tensor) -> Tensor:
     return embed[tokens]
 
 
+def _gathered(x: Tensor, dim: int) -> Tensor:
+    """A DTensor with its ``dim`` whole on every rank: replicated over each
+    mesh axis that shards it or holds it as a partial sum (other placements
+    kept); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    on = lambda p: p.is_partial() or isinstance(p, Shard) and p.dim % x.ndim == dim % x.ndim
+    if not any(on(p) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if on(p) else p for p in x.placements])
+
+
+def _head_operands(params: Params, h: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
+    """The final hidden states (..., d) and the (d, V) head (the tied
+    embedding's transpose or ``lm_head``), each with d whole on every rank:
+    on a mesh each rank's logits are then its batch rows by its vocabulary
+    slice (ZeRO's just-in-time gather of the weight). Left to DTensor, the
+    product with a large vocabulary shards d instead and every rank holds
+    the whole (B·S, V) logits as a partial sum: 1.1 TB a rank for
+    Gemma3-27B's 262 144 tokens at train_4k on the (16, 16) mesh, as the
+    dry-run counts it."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return _gathered(h, -1), _gathered(w, 0)
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
     dtype: torch.dtype = torch.float32
     device: torch.device | str = "cuda"
     remat: str = "none"  # "none" | "full" | "dots" (training only)
-    attn_impl: str = "naive"  # "naive" | "chunked" (kernel B4)
+    attn_impl: str = "naive"  # "naive" | "chunked" (kernel B4) | "stub" (dry-run probe)
     attn_q_blk: int = 1024
     attn_k_blk: int = 1024
     cache_update: str = "onehot"  # decode KV write: "onehot" | "dus"
@@ -72,9 +97,8 @@ class Model:
         cfg = self.cfg
         for kind in cfg.layer_kinds:
             _check_kind(kind)
-        if self.attn_impl not in ("naive", "chunked"):
-            raise NotImplementedError(
-                f"attn_impl {self.attn_impl!r}: not ported yet (the dry-run's probe, ROADMAP A20)")
+        if self.attn_impl not in ("naive", "chunked", "stub"):
+            raise ValueError(f"attn_impl {self.attn_impl!r} is not one of naive, chunked, stub")
         if self.remat not in REMAT:
             raise ValueError(f"remat {self.remat!r} is not one of {REMAT}")
 
@@ -129,8 +153,7 @@ class Model:
         return x
 
     def _head(self, params: Params, h: Tensor) -> Tensor:
-        h = rmsnorm(params["ln_f"], h, self.cfg.norm_eps)
-        w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        h, w = _head_operands(params, rmsnorm(params["ln_f"], h, self.cfg.norm_eps), self.cfg)
         return h @ w
 
     def _ctx(self, batch: dict, mode: str, cache_len: int = 0) -> Ctx:
@@ -179,8 +202,8 @@ class Model:
         h, aux = self._hidden(params, batch)
         if self.vocab_chunk is not None:
             # never materialize (B,S,V) float32 logits
-            h = rmsnorm(params["ln_f"], h, self.cfg.norm_eps)
-            w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+            h, w = _head_operands(params, rmsnorm(params["ln_f"], h, self.cfg.norm_eps),
+                                  self.cfg)
             ce_tok = chunked_softmax_xent(h, w, labels, chunk=self.vocab_chunk)
         else:
             logits = self._head(params, h).float()

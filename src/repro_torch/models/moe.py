@@ -14,7 +14,12 @@ the card's atomics land.
 
 Splitting the sorted rows by expert needs the group sizes on the host: one
 device-to-host read per MoE layer call (per shard on a mesh), counted in
-``_expert_compute.host_syncs`` when the sizes live on the card.
+``_expert_compute.host_syncs`` when the sizes live on the card. Fake tensors
+(the dry-run's ``FakeTensorMode``) have no values to read, so there the
+rows take a static-shape path instead (``_expert_compute_static``: every
+local expert over all ``cap`` rows, each row keeping its own expert's
+output), the dense form ``ragged_dot`` takes on the reference's CPU; the
+dry-run removes its extra products with ``roofline.moe_cpu_excess``.
 
 Expert parallelism (an :class:`EPSpec`) runs the reference's two
 ``shard_map`` islands through DTensor's ``local_map``, with the same in and
@@ -50,6 +55,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import Tensor
+from torch._subclasses.fake_tensor import is_fake
 
 from .config import ModelConfig, MoEConfig
 from .layers import _init, mlp_apply, mlp_init
@@ -116,6 +122,19 @@ def _expert_compute(x_sorted: Tensor, group_sizes: Tensor, w_gate: Tensor, w_up:
 _expert_compute.host_syncs = 0
 
 
+def _expert_compute_static(x_sorted: Tensor, e_sorted: Tensor, w_gate: Tensor, w_up: Tensor,
+                           w_down: Tensor) -> Tensor:
+    """:func:`_expert_compute` with no data-dependent shape: every local
+    expert runs over all ``cap`` rows and row r keeps the output of expert
+    ``e_sorted[r]`` (zero for ids past the local experts). E_local times
+    the products of the grouped path, for shapes only (fake tensors)."""
+    out = torch.zeros_like(x_sorted)
+    for e in range(w_gate.shape[0]):
+        y = (F.silu(x_sorted @ w_gate[e]) * (x_sorted @ w_up[e])) @ w_down[e]
+        out = torch.where((e_sorted == e)[:, None], y, out)
+    return out
+
+
 def _dispatch_compute(
     x2d: Tensor,
     weights: Tensor,
@@ -140,8 +159,11 @@ def _dispatch_compute(
     e_sorted = sort_key[order]
     w_sorted = torch.where(e_sorted < n_local_experts, flat_w[order], 0.0)
     x_sorted = x2d[flat_t[order]]  # (cap, d)
-    group_sizes = torch.bincount(e_sorted, minlength=n_local_experts + 1)[:n_local_experts]
-    y_sorted = _expert_compute(x_sorted, group_sizes, w_gate, w_up, w_down)
+    if is_fake(e_sorted):  # no values: the group sizes cannot be read
+        y_sorted = _expert_compute_static(x_sorted, e_sorted, w_gate, w_up, w_down)
+    else:
+        group_sizes = torch.bincount(e_sorted, minlength=n_local_experts + 1)[:n_local_experts]
+        y_sorted = _expert_compute(x_sorted, group_sizes, w_gate, w_up, w_down)
     y_sorted = y_sorted * w_sorted[:, None].to(y_sorted.dtype)
     # unsort by the inverse permutation to (T, k, d) and sum over k
     y = y_sorted.new_zeros((t * k, x2d.shape[1])).index_put((order,), y_sorted)

@@ -371,8 +371,10 @@ def batched_rollout_scores(
     objective with repair rows (``file_id >= n_clients``) masked out, the
     K scores averaged, ``cost_term`` (B,) added, and the candidate axis
     padded to a power of two with +inf (the padded lanes run nothing), then
-    ``argmin``: all on the device. ``devices`` is ``"auto"`` or
-    ``"never"``; both run on the one device the inputs are on.
+    ``argmin``: all on the device. ``devices="auto"`` with several CUDA
+    devices splits the (B_pad x K) lanes over them
+    (``_batched_rollout_scores_on``); ``"never"`` runs on the one device the
+    inputs are on.
 
     A guarded hot path (``diag.py``): pass every tensor on the rollout's
     device. Returns device tensors ``(scores (B_pad,), best ())``; the
@@ -380,21 +382,71 @@ def batched_rollout_scores(
     """
     if devices not in ("auto", "never"):
         raise ValueError(f"devices must be 'auto' or 'never', got {devices!r}")
+    on = None
+    if devices == "auto" and pi_stack.is_cuda and torch.cuda.device_count() > 1:
+        on = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return _batched_rollout_scores_on(
+        on, carry, generator, pi_stack, lam, overheads, rates, avail, cost_term, objective,
+        n_clients=n_clients, n_requests=n_requests, rollout_seeds=rollout_seeds, ttl=ttl,
+        hit_latency=hit_latency, geo=geo, draws=draws)
+
+
+def _lane_pad(b: int, k: int, n_dev: int) -> int | None:
+    """The padded candidate count whose B_pad x K lanes divide over
+    ``n_dev`` devices: the power of two at or above ``b``, doubled up to 4
+    times; None where no such pad divides (the one-device program runs),
+    the reference's rule."""
+    b_pad = _pow2(b)
+    for _ in range(5):
+        if (b_pad * k) % n_dev == 0:
+            return b_pad
+        b_pad *= 2
+    return None
+
+
+def _batched_rollout_scores_on(
+    devices, carry, generator, pi_stack, lam, overheads, rates, avail, cost_term,
+    objective=None, *, n_clients, n_requests=600, rollout_seeds=1, ttl=None,
+    hit_latency=0.0, geo=False, draws=None,
+) -> tuple[Tensor, Tensor]:
+    """:func:`batched_rollout_scores` with its (candidate x draw) lanes
+    split over ``devices`` (a list, or None for the inputs' device alone),
+    as the reference's ``shard_map`` over its lanes: the candidate pad grows
+    (``_lane_pad``) until the B_pad x K lanes divide the device count, the
+    padded candidates replaying candidate 0; the draws, dispatch masks and
+    cache pre-scan run once on the inputs' device, each device runs one B1
+    launch on its block of lanes, and the lanes' latencies come back to
+    the inputs' device, where the objective, the scores and ``argmin`` run
+    on the real candidates as on one device. So scores are bitwise the
+    one-device program's. Where no pad divides, the one-device program
+    runs."""
     if draws is not None and draws.arrival.shape[0] != rollout_seeds:
         raise ValueError(
             f"draws hold {draws.arrival.shape[0]} rollouts, rollout_seeds is {rollout_seeds}")
     b = pi_stack.shape[0]
     dev = pi_stack.device
+    b_pad = _pow2(b)
+    if devices is not None and len(devices) > 1:
+        grown = _lane_pad(b, rollout_seeds, len(devices))
+        if grown is None:
+            devices = None  # odd device count: the one-device program
+        else:
+            b_pad = grown
+            pi_stack = torch.cat([pi_stack, pi_stack[:1].expand((b_pad - b,) + pi_stack.shape[1:])])
+    else:
+        devices = None
     if geo:
         res = run_geo_segment_batch(carry, generator, pi_stack, lam, overheads, rates, avail,
-                                    n_requests, n_draws=rollout_seeds, draws=draws)
+                                    n_requests, n_draws=rollout_seeds, draws=draws,
+                                    devices=devices)
     else:
         res = run_segment_batch(carry, generator, pi_stack, lam, overheads, rates, avail,
-                                n_requests, ttl, hit_latency, n_draws=rollout_seeds, draws=draws)
-    lane = empirical_objective_device(res.latency, res.file_id, objective,
-                                      valid=res.file_id < n_clients)  # (B, K)
+                                n_requests, ttl, hit_latency, n_draws=rollout_seeds, draws=draws,
+                                devices=devices)
+    lat, fid = res.latency[:b], res.file_id[:b]
+    lane = empirical_objective_device(lat, fid, objective, valid=fid < n_clients)  # (B, K)
     scores = torch.mean(lane, dim=1) + torch.as_tensor(cost_term, dtype=torch.float32, device=dev)
-    pad = torch.full((_pow2(b) - b,), torch.inf, dtype=torch.float32, device=dev)
+    pad = torch.full((b_pad - b,), torch.inf, dtype=torch.float32, device=dev)
     scores = torch.cat([scores, pad])
     return scores, torch.argmin(scores)
 

@@ -24,16 +24,15 @@ load*:
   arrival rate ``repair_rate`` split across affected files by lost-chunk
   share (a tunable repair *pacer*, the knob real systems expose);
 * :func:`repair_schedule` — per-segment repair rows for a whole
-  availability trace, shaped to ride through the reference's
-  ``simulate_segments`` (not ported yet) as
-  extra (pi, lam) rows whose per-segment rates are folded in via the
-  simulator's per-file rate scaling;
+  availability trace, shaped to ride through ``simulate_segments``
+  (``storage/simulator.py``) as extra (pi, lam) rows whose per-segment
+  rates are folded in via the simulator's per-file rate scaling;
 * :func:`augment_plan` — append repair rows to a client plan for one
   segment (the closed-loop path).
 
-In the reference, the scenario engine injects these rows under EVERY
-policy and the repair-aware ``AdaptiveReplanner`` folds them into its
-solves; neither is ported yet (ROADMAP queue A, steps 15-16).
+The scenario engine (``scenarios/engine.py``) injects these rows under
+every policy and the repair-aware ``AdaptiveReplanner``
+(``serving/router.py``) folds them into its solves, as in the reference.
 """
 from __future__ import annotations
 

@@ -511,19 +511,66 @@ def dispatch_masks(
     return _spare_fill(sel, k_per_file[..., file_id], prio, avail)
 
 
+class _Shards:
+    """A leading axis of ``n`` rows (fleet seeds, rollout lanes) split over
+    ``devices``: padded up to a multiple of their count by replaying the
+    first rows, one contiguous block a device. Rows go out from, and come
+    back to, ``home``, the device the inputs live on; a block already on
+    its device is not copied. Device-to-device copies do not sync the host,
+    so this runs inside the guarded hot paths (``diag.py``)."""
+
+    def __init__(self, devices, n: int, home: torch.device):
+        self.devices, self.n, self.home = [torch.device(d) for d in devices], n, home
+        self.per = -(-n // len(self.devices))
+        run = self.per * len(self.devices)
+        self.idx = None if run == n else torch.arange(run, device=home) % n
+
+    def split(self, x: Tensor) -> list[Tensor]:
+        if self.idx is not None:
+            x = x[self.idx]
+        return [b.to(d, non_blocking=True) for b, d in zip(torch.split(x, self.per), self.devices)]
+
+    def gather(self, blocks) -> Tensor:
+        return torch.cat([b.to(self.home, non_blocking=True) for b in blocks])[: self.n]
+
+
+def _scan_split(shards: _Shards | None, t, masks, service, dep0=None, busy0=None):
+    """B1 with its rows split by ``shards``: one launch a device on its
+    block. ``t``, ``masks`` and ``service`` are full rows on the home
+    device; ``dep0`` and ``busy0`` full rows too, or already one block a
+    device (a carried state), or None (idle queues). Returns (latency
+    gathered home, [dep a device], [busy a device]): each row bitwise what
+    one launch over all rows gives it. With ``shards`` None: one launch,
+    and dep and busy as it returns them."""
+    if shards is None:
+        return fcfs_scan(t, masks, service, dep0, busy0)
+    blocks = lambda x: [None] * len(shards.devices) if x is None else (
+        x if isinstance(x, list) else shards.split(x))
+    outs = [fcfs_scan(*a) for a in zip(*(blocks(x) for x in (t, masks, service, dep0, busy0)))]
+    return shards.gather([o[0] for o in outs]), [o[1] for o in outs], [o[2] for o in outs]
+
+
+def _gathered(shards: _Shards | None, state):
+    """A state from :func:`_scan_split` on the home device."""
+    return state if shards is None else shards.gather(state)
+
+
 def _scan(
-    arrival: Tensor, serve: Tensor, service: Tensor, dep0: Tensor
+    arrival: Tensor, serve: Tensor, service: Tensor, dep0: Tensor, devices=None
 ) -> tuple[Tensor, Tensor, Tensor]:
     """B1 over the leading axes of ``serve`` as ONE launch; ``arrival``,
-    ``service`` and ``dep0`` broadcast against them (common draws)."""
+    ``service`` and ``dep0`` broadcast against them (common draws).
+    ``devices`` (several) split the flattened rows over them instead, one
+    launch a device."""
     if serve.dim() == 2:
         return fcfs_scan(arrival, serve, service, dep0)
     lead = serve.shape[:-2]
     n, m = serve.shape[-2:]
     flat = lambda x, *event: x.expand(lead + event).reshape((-1,) + event)
-    latency, dep, busy = fcfs_scan(
-        flat(arrival, n), serve.reshape((-1, n, m)), flat(service, n, m), flat(dep0, m)
-    )
+    rows = (flat(arrival, n), serve.reshape((-1, n, m)), flat(service, n, m), flat(dep0, m))
+    shards = None if devices is None else _Shards(devices, rows[0].shape[0], serve.device)
+    latency, dep, busy = _scan_split(shards, *rows)
+    dep, busy = _gathered(shards, dep), _gathered(shards, busy)
     return (latency.reshape(lead + (n,)), dep.reshape(lead + (m,)),
             busy.reshape(lead + (m,)))
 
@@ -560,9 +607,11 @@ def _run_segment(
     avail: Tensor,
     ttl: Tensor | None = None,
     hit_latency: Tensor | float = 0.0,
+    devices=None,
 ) -> tuple[SimCarry, SegmentResult]:
     """One segment on explicit draws; ``pi`` (r, m), or a (B, r, m) stack
-    of candidates on common draws with a leading (K,) axis.
+    of candidates on common draws with a leading (K,) axis (``devices``:
+    B1's (B·K) rows split over them, ``_scan``).
 
     ``overheads``/``rates`` are the (already drift-scaled) shifted-
     exponential service parameters, ``avail`` the (m,) availability mask.
@@ -577,7 +626,7 @@ def _run_segment(
     new_cache, hit, serve = _cache_prescan(carry.cache, arrival, draws.file_id, ttl, masks)
     if hit is not None:
         degraded = degraded & ~hit
-    latency, dep, busy = _scan(arrival, serve, service, carry.dep)
+    latency, dep, busy = _scan(arrival, serve, service, carry.dep, devices)
     if hit is not None:
         latency = torch.where(hit, hit_latency, latency)
     new_carry = SimCarry(dep=dep, t0=arrival[..., -1], cache=new_cache)
@@ -792,20 +841,22 @@ def _run_geo_segment(
     overheads_cs: Tensor,
     rates_cs: Tensor,
     avail: Tensor,
+    devices=None,
 ) -> tuple[SimCarry, GeoSegmentResult]:
     """One geo segment: site-dependent service, shared per-node FCFS queues.
 
     ``overheads_cs`` / ``rates_cs`` are (C, m); each request draws service
     from its origin site's row, but every site contends for the same m
     queues. ``pi`` is one plan or a (B, r, m) candidate stack, as in
-    :func:`_run_segment`. Observations come back per (site, node).
+    :func:`_run_segment` (``devices`` likewise). Observations come back per
+    (site, node).
     """
     c = overheads_cs.shape[0]
     site = draws.site_id
     arrival = carry.t0 + draws.arrival
     service = overheads_cs[site] + draws.exp / rates_cs[site]
     masks, degraded = dispatch_masks(draws.u, draws.prio, pi, draws.file_id, avail)
-    latency, dep, busy = _scan(arrival, masks, service, carry.dep)
+    latency, dep, busy = _scan(arrival, masks, service, carry.dep, devices)
     site_oh = torch.nn.functional.one_hot(site, c).to(torch.float32)  # (..., N, C)
     served = torch.where(masks, service, 0.0)
     pair = lambda x: torch.einsum("...nc,...nm->...cm", site_oh, x)
@@ -966,6 +1017,7 @@ def run_segment_batch(
     *,
     n_draws: int = 1,
     draws: SimDraws | None = None,
+    devices=None,
 ) -> SegmentResult:
     """Roll a (B, r, m) stack of candidate plans out from ONE queue state.
 
@@ -977,13 +1029,16 @@ def run_segment_batch(
     the carried ``dep``; the cache pre-scan, which does not depend on the
     plan, runs once per draw. Every field gains leading (B, K) axes; the
     carry is not advanced (rollouts are hypothetical). ``draws`` has a
-    leading (K,) axis; else ``n_draws`` sets K.
+    leading (K,) axis; else ``n_draws`` sets K. ``devices`` (a list of
+    several) split the B·K systems' rows over them, one B1 launch a device;
+    everything else runs where the inputs are.
     """
     dev = pi_stack.device
     draws = _draws_for(generator, draws, lam[None, :], (n_draws, n_requests),
                        pi_stack.shape[-1], True)
     _, res = _run_segment(
-        carry, draws, pi_stack, overheads, rates, avail, ttl, _hit_latency(hit_latency, dev)
+        carry, draws, pi_stack, overheads, rates, avail, ttl, _hit_latency(hit_latency, dev),
+        devices,
     )
     return _candidate_result(res, pi_stack.shape[0])
 
@@ -1000,14 +1055,16 @@ def run_geo_segment_batch(
     *,
     n_draws: int = 1,
     draws: SimDraws | None = None,
+    devices=None,
 ) -> GeoSegmentResult:
     """Geo twin of :func:`run_segment_batch`: (B, K) rollouts of
-    :func:`run_geo_segment_raw` under common random numbers, one B1 launch."""
+    :func:`run_geo_segment_raw` under common random numbers, one B1 launch
+    (one a device over ``devices``)."""
     draws = _draws_for(generator, draws, lam_cs, (n_draws, n_requests),
                        pi_stack.shape[-1], True)
     if draws.site_id is None:
         raise ValueError("geo draws need site_id")
-    _, res = _run_geo_segment(carry, draws, pi_stack, overheads_cs, rates_cs, avail)
+    _, res = _run_geo_segment(carry, draws, pi_stack, overheads_cs, rates_cs, avail, devices)
     return _candidate_result(res, pi_stack.shape[0])
 
 
@@ -1030,12 +1087,14 @@ def _fleet_inputs(draws: SimDraws, pi, overheads_cs, rates_cs, ttl=None, t0=None
     return t, draws.file_id, site, masks, service, hit, new_cache
 
 
-def _fleet_one(draws, pi, overheads_cs, rates_cs, warm, ttl=None, hit_latency=0.0):
+def _fleet_one(draws, pi, overheads_cs, rates_cs, warm, ttl=None, hit_latency=0.0,
+               shards: _Shards | None = None):
     t, file_id, site_id, masks, service, hit, _ = _fleet_inputs(
         draws, pi, overheads_cs, rates_cs, ttl)
     # busy accrues in the scan's carry, not per step: an (N, m) busy output
     # would dominate the kernel's memory traffic
-    latency, _, busy = fcfs_scan(t, masks, service)
+    latency, _, busy = _scan_split(shards, t, masks, service)  # one B1 launch a device
+    busy = _gathered(shards, busy)
     if hit is not None:
         latency = torch.where(hit, hit_latency, latency)
     return (latency[..., warm:], file_id[..., warm:], site_id[..., warm:], busy,
@@ -1068,7 +1127,7 @@ def fleet_one_raw(
 
 def _fleet_stream_batched(
     generator, draws, pi, lam_cs, overheads_cs, rates_cs, ttl, hit_latency,
-    n_seeds, n_chunks, block, warm, sketch, materialize=False,
+    n_seeds, n_chunks, block, warm, sketch, materialize=False, shards=None,
 ):
     """Streaming fleet: a device loop over ``n_chunks`` request blocks.
 
@@ -1079,11 +1138,15 @@ def _fleet_stream_batched(
     ONE B1 launch from the carried state, and folds the block's post-warmup
     latencies into the global accumulators and that chunk's window stats.
     ``materialize`` also keeps every block's latencies (validation).
+    With ``shards`` the launch is one a device on its seeds, and each
+    device's ``dep`` and ``busy`` stay on it from chunk to chunk.
     """
     dev = pi.device
     s, m = n_seeds, overheads_cs.shape[-1]
     zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
     dep, busy, t0 = zeros(s, m), zeros(s, m), zeros(s)
+    if shards is not None:
+        dep, busy = shards.split(dep), shards.split(busy)
     cache = None  # cold: the pre-scan starts every file expired
     stats = stream_init(sketch, (s,), device=dev)
     hit_count = None if ttl is None else torch.zeros((s,), dtype=torch.int32, device=dev)
@@ -1093,7 +1156,7 @@ def _fleet_stream_batched(
                            (s, block), m, False)
         t, _, _, masks, service, hit, cache = _fleet_inputs(
             chunk, pi, overheads_cs, rates_cs, ttl, t0, cache)
-        latency, dep, busy = fcfs_scan(t, masks, service, dep, busy)
+        latency, dep, busy = _scan_split(shards, t, masks, service, dep, busy)
         if hit is not None:
             latency = torch.where(hit, hit_latency, latency)
         include = (w * block + torch.arange(block, device=dev) >= warm).expand(latency.shape)
@@ -1106,7 +1169,8 @@ def _fleet_stream_batched(
         if materialize:
             lats.append(latency)
     windows = StreamingStats(*(torch.stack(f, dim=1) for f in zip(*windows)))
-    return stats, windows, busy, hit_count, torch.cat(lats, dim=1) if materialize else None
+    return (stats, windows, _gathered(shards, busy), hit_count,
+            torch.cat(lats, dim=1) if materialize else None)
 
 
 def simulate_fleet(
@@ -1148,11 +1212,35 @@ def simulate_fleet(
 
     ``draws`` replace the generator's, each with a leading (S, N) axis and
     ``site_id`` set; a streaming run takes a leading (W, S, N) chunk axis
-    (or (S, N) for one chunk). Sharding seeds over several CUDA devices is
-    not ported and raises ``NotImplementedError``. Once the inputs are on
-    the device the run is the guarded hot path ``storage.simulate_fleet``
-    (``diag.py``).
+    (or (S, N) for one chunk). With ``devices="auto"`` and several CUDA
+    devices the seed axis is split over them (``_simulate_fleet_on``);
+    ``"never"`` runs on one. Once the inputs are on the device the run is
+    the guarded hot path ``storage.simulate_fleet`` (``diag.py``).
     """
+    dev = fabric.cluster.device
+    on = None
+    if devices == "auto" and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        on = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return _simulate_fleet_on(
+        on, generator, pi, lam_cs, fabric, chunk_mb, n_requests, n_seeds,
+        drop_warmup=drop_warmup, cache_ttl=cache_ttl, cache_hit_latency=cache_hit_latency,
+        stream=stream, n_chunks=n_chunks, sketch=sketch, keep_latency=keep_latency, draws=draws)
+
+
+def _simulate_fleet_on(
+    devices, generator, pi, lam_cs, fabric, chunk_mb, n_requests, n_seeds, *,
+    drop_warmup=0.1, cache_ttl=None, cache_hit_latency=0.0, stream=False, n_chunks=1,
+    sketch=None, keep_latency=False, draws=None,
+) -> FleetResult:
+    """:func:`simulate_fleet` with its seed axis split over ``devices`` (a
+    list, or None for the inputs' device alone), as the reference's
+    ``shard_map`` over a seed axis does: the axis is padded up to a
+    multiple of the device count (padded seeds replay the first ones and are
+    sliced away), the draws and every input are made once on the inputs'
+    device, as on one device, each device runs one B1 launch on its seeds
+    (a streaming run: one a chunk, each device's queue state carried on it)
+    and the results are gathered back. So each seed's trajectory is bitwise
+    the one-device run's. A device that fails raises."""
     if n_chunks < 1:
         raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
     if n_chunks > 1 and not stream:
@@ -1163,11 +1251,6 @@ def simulate_fleet(
     if keep_latency and not stream:
         raise ValueError("keep_latency only applies to stream=True runs")
     dev = fabric.cluster.device
-    if devices == "auto" and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "simulate_fleet over several CUDA devices is not ported; pass "
-            "devices='never' to run on one"
-        )
     pi = _on(pi, dev)
     lam_cs = _on(lam_cs, dev)
     if draws is not None and draws.site_id is None:
@@ -1182,14 +1265,15 @@ def simulate_fleet(
     with diag.hot_path("storage.simulate_fleet"):
         return _simulate_fleet_device(
             generator, pi, lam_cs, d, rates, n_requests, n_seeds, drop_warmup,
-            ttl, hit_latency, stream, n_chunks, sketch, keep_latency, draws)
+            ttl, hit_latency, stream, n_chunks, sketch, keep_latency, draws, devices)
 
 
 def _simulate_fleet_device(
     generator, pi, lam_cs, d, rates, n_requests, n_seeds, drop_warmup, ttl,
-    hit_latency, stream, n_chunks, sketch, keep_latency, draws,
+    hit_latency, stream, n_chunks, sketch, keep_latency, draws, devices=None,
 ) -> FleetResult:
     """:func:`simulate_fleet` once its inputs are on the device."""
+    shards = lambda s: None if devices is None else _Shards(devices, s, pi.device)
     if stream:
         if draws is not None and draws.arrival.dim() == 2:
             draws = SimDraws(*(None if x is None else x[None] for x in draws))
@@ -1201,11 +1285,12 @@ def _simulate_fleet_device(
         warm = int(n_requests * n_chunks * drop_warmup)
         stats, windows, busy, hit_count, lats = _fleet_stream_batched(
             generator, draws, pi, lam_cs, d, rates, ttl, hit_latency, n_seeds,
-            n_chunks, n_requests, warm, sketch, keep_latency)
+            n_chunks, n_requests, warm, sketch, keep_latency, shards(n_seeds))
         return FleetResult(
             latency=lats, file_id=None, site_id=None, node_busy=busy, hit=None,
             stream=stats, windows=windows, hit_count=hit_count, sketch=sketch,
         )
     draws = _draws_for(generator, draws, lam_cs, (n_seeds, n_requests), d.shape[-1], False)
     warm = int(draws.arrival.shape[-1] * drop_warmup)
-    return FleetResult(*_fleet_one(draws, pi, d, rates, warm, ttl, hit_latency))
+    return FleetResult(*_fleet_one(draws, pi, d, rates, warm, ttl, hit_latency,
+                                   shards(draws.arrival.shape[0])))

@@ -206,5 +206,9 @@ def test_model_accepts_every_kind_of_the_reference_and_no_other():
 
 
 def test_unported_attention_impl_raises():
-    with pytest.raises(NotImplementedError, match="stub"):
-        Model(cfg=SMOKE, device="cpu", attn_impl="stub")
+    """Every attention impl of the reference builds, the dry-run's "stub"
+    probe included; one the reference lacks raises."""
+    for impl in ("naive", "chunked", "stub"):
+        Model(cfg=SMOKE, device="cpu", attn_impl=impl)
+    with pytest.raises(ValueError, match="flash"):
+        Model(cfg=SMOKE, device="cpu", attn_impl="flash")

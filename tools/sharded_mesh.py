@@ -32,10 +32,19 @@ c. Qwen3-MoE-30B-A3B at full width, 4 of 48 layers, on the expert-parallel
    set to the ep axis's size, which drops nothing (the reference's tests
    use generous factors likewise).
 
+d. After the ranks, in one process: a fleet of an odd seed count and the
+   rollout lanes of ``batched_rollout_scores`` with ``devices="auto"``,
+   which splits them over every card of the machine (one B1 launch a
+   card), against ``devices="never"`` on one card: every field of the
+   materialized and the streaming fleet, and the scores and ``best``,
+   bitwise; under ``REPRO_DIAG=1``, so the device-to-device copies pass
+   the hot-path guard that refuses host syncs. With ``--device cpu`` the
+   private device-list functions run over as many CPU devices.
+
 ``--smoke`` runs the smoke configs at short lengths (a rehearsal on the
 CPU). Rank 0 prints each part's walls, sharded and unsharded, and the
-largest differences; the last line is a JSON summary. Every rank fails on
-a mismatch, and the script exits non-zero.
+largest differences, then a JSON summary; part d prints its own JSON line
+last. Every rank fails on a mismatch, and the script exits non-zero.
 """
 from __future__ import annotations
 
@@ -286,6 +295,79 @@ def rank_main(rank: int, world: int, port: int, args) -> None:
         dist.destroy_process_group()
 
 
+def fleet_and_lanes(device: str, n_dev: int, smoke: bool) -> dict:
+    """Part d: the seed and lane sharding over ``n_dev`` devices against
+    one device, bitwise, with the hot-path guard armed."""
+    import os
+
+    from repro_torch.core import project_capped_simplex
+    from repro_torch.kernels.fcfs_queue import fcfs_scan
+    from repro_torch.serving import router
+    from repro_torch.storage import GeoFabric, init_carry, segment_draws, simulator, tahoe_testbed
+
+    cuda = device == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    devices = [torch.device("cuda", i) if cuda else dev for i in range(n_dev)]
+    cl = tahoe_testbed(device=dev)
+    r, m, k = 6, 12, 4.0
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    lam = torch.tensor([0.030, 0.020, 0.015, 0.012, 0.010, 0.008], device=dev)
+    pi = project_capped_simplex(torch.rand((r, m), generator=gen(1), device=dev),
+                                torch.full((r,), k, device=dev))
+    fabric = GeoFabric.single_site(cl)
+    seeds, n = 2 * n_dev + 1, (2000 if smoke else 20_000)
+    out, before = {}, os.environ.get("REPRO_DIAG")
+    os.environ["REPRO_DIAG"] = "1"
+    try:
+        for label, kw in (("fleet", {}), ("stream", dict(stream=True, n_chunks=2))):
+            args = (pi, lam[None], fabric, 150.0 / k, n, seeds)
+            one = simulator.simulate_fleet(gen(2), *args, devices="never", **kw)
+            fcfs_scan.launches = 0
+            t = time.perf_counter()
+            many = (simulator.simulate_fleet(gen(2), *args, devices="auto", **kw) if cuda else
+                    simulator._simulate_fleet_on(devices, gen(2), *args, **kw))
+            wall = time.perf_counter() - t
+            same = all((a is None and b is None) or torch.equal(a, b) for a, b in (
+                (getattr(many, f), getattr(one, f))
+                for f in ("latency", "file_id", "site_id", "node_busy", "hit_count")))
+            if kw:
+                same = same and all(torch.equal(a, b) for part in ("stream", "windows")
+                                    for a, b in zip(getattr(many, part), getattr(one, part)))
+            out[label] = dict(seeds=seeds, requests=n, bitwise=same, launches=fcfs_scan.launches,
+                              wall_s=wall)
+            if not same:
+                raise AssertionError(f"d {label}: the fleet over {n_dev} devices differs")
+        d, rates = cl.service_params(150.0 / k)
+        carry = init_carry(m, device=dev)
+        avail = torch.ones(m, dtype=torch.bool, device=dev)
+        for b, draws_k in ((8, 1), (5, 2)):
+            pis = torch.stack([project_capped_simplex(
+                torch.rand((r, m), generator=gen(10 + i), device=dev),
+                torch.full((r,), k, device=dev)) for i in range(b)])
+            cost = torch.rand((b,), generator=gen(3), device=dev)
+            draws = segment_draws(gen(4), lam[None], 600, m, draws_k)
+            a = (carry, None, pis, lam, d, rates, avail, cost, None)
+            kw = dict(n_clients=r, n_requests=600, rollout_seeds=draws_k, draws=draws)
+            want, want_best = router.batched_rollout_scores(*a, devices="never", **kw)
+            fcfs_scan.launches = 0
+            got, best = (router.batched_rollout_scores(*a, devices="auto", **kw) if cuda else
+                         router._batched_rollout_scores_on(devices, *a, **kw))
+            same = bool(torch.equal(got[:b], want[:b]) and int(best) == int(want_best))
+            out[f"lanes_{b}x{draws_k}"] = dict(bitwise=same, launches=fcfs_scan.launches,
+                                               best=int(best),
+                                               pad=router._lane_pad(b, draws_k, n_dev))
+            if not same:
+                raise AssertionError(f"d lanes {b}x{draws_k}: differ over {n_dev} devices")
+    finally:
+        if before is None:
+            del os.environ["REPRO_DIAG"]
+        else:
+            os.environ["REPRO_DIAG"] = before
+    print(f"[d] the fleet and the lanes over {n_dev} devices == one device, bitwise, "
+          f"REPRO_DIAG=1: {out}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", type=int, nargs=2, default=(2, 2))
@@ -303,6 +385,8 @@ def main() -> int:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     mp.start_processes(rank_main, args=(world, port, args), nprocs=world, start_method="spawn")
+    d = fleet_and_lanes(args.device, world, args.smoke)
+    print(json.dumps({"ok": True, "d": d}))
     return 0
 
 
