@@ -356,8 +356,12 @@ Phases, each raising on failure:
    devices. 18a and 18b's dry-runs (``start_dryruns``, started before phase
    13) run as ``python -m repro_torch.launch.dryrun`` processes with no
    card visible, each in its own fake world: 18a SmolLM-135M and
-   Qwen3-MoE-30B-A3B at train_4k on the (16, 16) mesh at O2 (every record
-   ``ok``; the roofline terms printed); 18b ``DRYRUN_18B``'s SmolLM-135M
+   Qwen3-MoE-30B-A3B at train_4k on the (16, 16) mesh at O2, and the
+   repaired paths (``DRYRUN_18A_REPAIRED``): SmolLM-135M's train_4k on the
+   (2, 16, 16) mesh at O0 and Qwen3-MoE's EP island at 8 x 2048 on the
+   (16, 16) mesh at O2, a batch narrower than the DP axis (every record
+   ``ok``; bytes a card and the roofline terms printed, the multi-pod
+   record's from its raw count); 18b ``DRYRUN_18B``'s SmolLM-135M
    bfloat16 O2 train step on a (1, 1) fake mesh, then run for real on the
    card's (1, 1) NCCL mesh: the estimate of bytes a card beside
    ``max_memory_allocated``, the bound beside the measured wall (gate: the
@@ -480,7 +484,7 @@ from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
-from repro_torch.launch.roofline import PEAK_FLOPS  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS, CellCosts  # noqa: E402
 from repro_torch.launch.specs import batch_specs_for  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     TrainState,
@@ -743,6 +747,20 @@ SHARD_RTOL, SHARD_ATOL, SHARD_MOE_ATOL = 1e-6, 1e-5, 2e-5
 # replan_wall's candidates x draws (and an odd 5) through the lanes
 DRYRUN_18A = ["--arch", "smollm-135m,qwen3-moe-30b-a3b", "--shape", "train_4k",
               "--mesh", "single", "--opt", "O2", "--jobs", "2"]
+# 18a's repaired paths on the card host's torch: a multi-pod train cell
+# (the sweep's, past 600 s before the MLP ran on each rank's block) and the
+# MoE island at a batch narrower than the DP axes (8 over 16)
+DRYRUN_18A_REPAIRED = {
+    "18a-multi": ["--arch", "smollm-135m", "--shape", "train_4k", "--mesh", "multi",
+                  "--opt", "O0"],
+    "18a-moe-b8": ["--arch", "qwen3-moe-30b-a3b", "--shape", "train:8x2048", "--mesh",
+                   "single", "--opt", "O2"],
+}
+# two earlier whole runs of this script on an H100 80GB HBM3 at 700 W,
+# before the residual stream kept its placements (PERF.md §6, the dry-run's
+# slice, its runs F3 and F4): 12a's phase wall (s) and 18b's median step
+# (ms); they kept no 17a wall
+EARLIER_WALLS = dict(phase_12a_s=(135.6, 167.6), step_18b_ms=(2155.6, 2490.0))
 DRYRUN_18B = dict(arch="smollm-135m", batch=8, seq=2048, opt="O2", steps=3)
 FLEET_SHARD = dict(n_seeds=7, n_requests=20_000, stream_requests=10_000, n_chunks=2)
 LANE_CASES = ((8, 1), (16, 2), (5, 2))
@@ -3551,13 +3569,15 @@ def phase_train(dev, limits: dict) -> dict:
         train_mod.get_config = registry
         shutil.rmtree(root)
         torch.cuda.empty_cache()
-    print(f"[12a] phase 12a wall {time.perf_counter() - t_phase:.3f} s")
+    wall = time.perf_counter() - t_phase
+    print(f"[12a] phase 12a wall {wall:.3f} s")
     if failed:
         raise AssertionError("phase 12a failed: " + "; ".join(failed))
     saves = [held_by[label] for label, _, _ in spans if label.startswith("save")]
     return dict(save=(sum(r["launches"] for r in log["saves"]),
                       max(saves, key=lambda r: r["bound_ms"])),
-                restore=(rst["launches"], held_by[f"restore {rst['step']}"]))
+                restore=(rst["launches"], held_by[f"restore {rst['step']}"]),
+                wall=wall, step_ms=steady * 1e3)
 
 
 def backward_bound(q, k) -> dict:
@@ -4668,7 +4688,7 @@ def start_dryruns() -> dict:
     (root / "build").mkdir(exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="")
     n = DRYRUN_18B
-    args = {"18a": DRYRUN_18A,
+    args = {"18a": DRYRUN_18A, **DRYRUN_18A_REPAIRED,
             "18b": ["--arch", n["arch"], "--shape", f"train:{n['batch']}x{n['seq']}",
                     "--mesh", "1x1", "--opt", n["opt"]]}
     started = {}
@@ -4699,16 +4719,26 @@ def dryrun_records(tag: str, started: dict) -> list:
     if rc != 0 or not records:
         raise AssertionError(f"{tag}: the dry-run failed (exit {rc}); see {log}")
     for rec in records:
+        head = (f"[{tag}] {rec['arch']} x {rec['shape']} x {rec['mesh']} x {rec['opt']}: "
+                f"{rec['per_device_bytes'] / 1e9:.3f} GB a card (fits 80 GB: "
+                f"{rec['fits_h100_80g']}); ")
+        if "roofline" not in rec:  # the multi-pod mesh: the raw count's terms
+            raw = dict(rec["raw"], intra_node_axes=tuple(rec["raw"]["intra_node_axes"]))
+            r = CellCosts(**raw).roofline(512 if rec["mesh"] == "multi" else 256)
+            print(head + f"raw count, no corrections (as the reference's multi-pod records): "
+                  f"compute {r['compute_s']:.6g} s, memory {r['memory_s']:.6g} s, collective "
+                  f"{r['collective_s']:.6g} s -> {r['dominant']}, bound "
+                  f"{r['bound_step_s']:.6g} s; {rec['raw']['flops']:.6g} FLOP a card; counted "
+                  f"in {rec['compile_s']} s")
+            continue
         r = rec["roofline"]
-        print(f"[{tag}] {rec['arch']} x {rec['shape']} x {rec['mesh']} x {rec['opt']}: "
-              f"{rec['per_device_bytes'] / 1e9:.3f} GB a card (fits 80 GB: "
-              f"{rec['fits_h100_80g']}); compute {r['compute_s']:.6g} s, memory "
+        print(head + f"compute {r['compute_s']:.6g} s, memory "
               f"{r['memory_s']:.6g} s (pre-fusion {r['memory_prefusion_s']:.6g}), collective "
               f"{r['collective_s']:.6g} s -> {r['dominant']}, bound {r['bound_step_s']:.6g} s; "
-              f"{rec['raw']['flops']:.6g} FLOP a card, MoE excess "
-              f"{rec['moe_cpu_excess_flops']:.6g}, B4 I/O {rec['flash_io_bytes']:.6g} B; "
-              f"roofline fraction {rec['roofline_fraction']:.4%}; counted in "
-              f"{rec['wall_s']} s")
+              f"{rec['raw']['flops']:.6g} FLOP a card, MoE excess of the reference's CPU "
+              f"product {rec['moe_cpu_excess_flops']:.6g} (recorded, not subtracted), B4 I/O "
+              f"{rec['flash_io_bytes']:.6g} B; roofline fraction "
+              f"{rec['roofline_fraction']:.4%}; counted in {rec['wall_s']} s")
     return records
 
 
@@ -4873,7 +4903,8 @@ def phase_dryrun(dev, started: dict, sol) -> dict:
     import torch.distributed as dist
 
     t0 = time.perf_counter()
-    dryrun_records("18a", started)
+    for tag in ("18a", *DRYRUN_18A_REPAIRED):
+        dryrun_records(tag, started)
     (rec,) = dryrun_records("18b", started)
     torch.cuda.empty_cache()
     try:
@@ -5072,6 +5103,15 @@ def main() -> int:
         "bound_by_hd256": hd256["bound_by"],
         "library_ms_hd256": hd256["library_ms"],
     })
+    walls_17a = sharded["train"]["walls"]
+    earlier = EARLIER_WALLS
+    print(f"[walls] {card}: 12a phase {training['wall']:.1f} s (median step "
+          f"{training['step_ms']:.1f} ms; earlier runs F3 {earlier['phase_12a_s'][0]} s, F4 "
+          f"{earlier['phase_12a_s'][1]} s); 17a sharded steps "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls_17a)} ms, unsharded "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in sharded['train']['ref_walls'])} ms (no "
+          f"earlier wall kept); 18b median step {roof['check']['wall'] * 1e3:.1f} ms (earlier "
+          f"runs F3 {earlier['step_18b_ms'][0]} ms, F4 {earlier['step_18b_ms'][1]} ms)")
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(card)  # again, so that the end of the output names the card
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,30 @@
 """Functions run on each rank's (batch, head) block of DTensors.
 
 Some computations are independent per batch row and per head: attention's
-core, RWKV6's recurrence. Run by DTensor's sharding propagation op by op,
-their batched products merge a DP-sharded batch dim with a TP-sharded head
-dim into strided shards, whose redistributions DTensor plans by a graph
-search on every new shape, and a per-token loop pays DTensor's host cost
-on every step. ``local_blocks`` runs such a function once per rank on
-local tensors through ``local_map``: the batch dim over the DP axes when
-it divides them, the head dim over ``model`` when every head count
-divides it, each replicated otherwise. A gradient comes back at its
-input's placements, except over a mesh axis that splits the work but not
-that input (a weight without a batch dim, over the DP axes): there each
-rank's gradient is its block's share, partial.
+core, RWKV6's recurrence, the MLP's columns of ff. Run by DTensor's
+sharding propagation op by op, their batched products merge a DP-sharded
+batch dim with a TP-sharded head dim into strided shards, whose
+redistributions DTensor plans by a graph search on every new shape (on
+the (pod, data, model) mesh a single product of the MLP took minutes), and
+a per-token loop pays DTensor's host cost on every step. ``local_blocks``
+runs such a function once per rank on local tensors through ``local_map``:
+the batch dim over the DP axes when it divides them, the head dim over
+``model`` when every head count divides it, each replicated otherwise.
+
+An axis that splits the work but not a tensor leaves that tensor's
+per-rank value a share of a sum: a gradient of a weight without a batch
+dim, over the DP axes, an activation's gradient without a head dim, over
+``model``, and an output without a head dim, over ``model`` (the MLP's
+down-projection sums over its ff slice). All come back ``Partial`` there.
+The output stays a partial sum rather than being reduced inside the
+block, so the block holds no collective of its own to differentiate; the
+caller sums it where the reference's semantics need the sum, at the
+residual add (``placed_like``), and sums the input's gradient in the
+backward (``grad_placed``). Left to DTensor, a partial residual is what
+it makes of either at no cost, and the next norm reduce-scatters it over
+the sequence, so that every product after it merges a strided shard.
+Every other placement is the input's, or ``Shard`` / ``Replicate`` for an
+output.
 """
 from __future__ import annotations
 
@@ -27,9 +40,10 @@ def local_blocks(fn: Callable, args: Sequence[Tensor], dims: Sequence[tuple],
                  out_dims: Sequence[tuple]):
     """``fn(*args)`` on each rank's block. ``dims[i]`` is arg i's (batch
     dim, head dim), either None; ``out_dims`` likewise for each output (a
-    single output: one entry). A plain tensor arg is taken as replicated
-    (every rank holds the same value). Returns DTensors, a tuple for
-    several outputs."""
+    single output: one entry; one without a head dim is a partial sum over
+    ``model`` when the heads are split). A plain tensor arg is taken as
+    replicated (every rank holds the same value). Returns DTensors, a
+    tuple for several outputs."""
     from torch.distributed.tensor.experimental import local_map
 
     mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
@@ -59,10 +73,61 @@ def local_blocks(fn: Callable, args: Sequence[Tensor], dims: Sequence[tuple],
             for a in args]
     in_pl = tuple(pl(*d) for d in dims)
     grad_pl = tuple(pl(*d, split=Partial) for d in dims)
-    out_pl = [list(pl(*d)) for d in out_dims]
+    out_pl = [list(pl(*d, split=Partial)) for d in out_dims]
     return local_map(fn, out_placements=out_pl[0] if len(out_pl) == 1 else tuple(out_pl),
                      in_placements=in_pl, in_grad_placements=grad_pl, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def placed_like(y: Tensor, x: Tensor) -> Tensor:
+    """y redistributed to x's placements when both are DTensors (partial
+    sums summed, shards gathered), else y as it is: what a residual add
+    ``x + placed_like(y, x)`` needs to keep the stream's placements."""
+    if isinstance(y, DTensor) and isinstance(x, DTensor):
+        y = _placed(y, x.placements)
+    return y
+
+
+def _placed(y: DTensor, placements) -> DTensor:
+    """y at ``placements``, a partial sum among them taken whole (a value
+    cannot be made partial, and a sum is what a partial stands for)."""
+    placements = tuple(Replicate() if pl.is_partial() else pl for pl in placements)
+    return y if tuple(y.placements) == placements else y.redistribute(y.device_mesh, placements)
+
+
+class _GradPlaced(torch.autograd.Function):
+    """The identity, whose backward hands on its gradient at the forward
+    input's placements (kept, not the input: the input stays free for a
+    checkpoint to drop)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor) -> Tensor:
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return _placed(g, ctx.placements) if isinstance(g, DTensor) else g
+
+
+def grad_placed(x: Tensor) -> Tensor:
+    """x, whose gradient comes back at x's own placements: the input of
+    products whose gradients DTensor leaves partial over ``model`` or
+    split on d (``local_blocks`` returns an input's gradient partial over
+    an axis that splits the work but not that input)."""
+    return _GradPlaced.apply(x) if isinstance(x, DTensor) else x
+
+
+def rows_product(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` for a weight that splits no dim over ``model`` (MLA's and
+    RWKV6's low-rank down-projections): on a mesh each rank multiplies its
+    batch rows, the product whole on every rank of ``model``. Left to
+    DTensor, the product may come out split over ``model`` on its columns
+    (a free slice of a replicated weight), and its next norm or product
+    then reduce-scatters it over the sequence."""
+    if isinstance(x, DTensor):
+        return local_blocks(torch.matmul, (x, w), [(0, None), (None, None)], [(0, None)])
+    return x @ w
 
 
 def split_last(x: Tensor, *sizes: int) -> Tensor:

@@ -12,8 +12,8 @@ rank's shards at the sharding rules' placements, and runs one
 ``jit_train_step``, ``jit_prefill_step`` or ``jit_decode_step`` inside
 :class:`~.roofline.CostCounter`. Nothing touches a card: no kernel is
 launched, and attention at O1 and up runs kernel B4's plain twin. An MoE
-layer takes its static-shape path (``models/moe.py``): fake group sizes
-cannot be read.
+layer's expert products run as a shape-only grouped product
+(``_experts_even``): fake group sizes cannot be read.
 
 Per cell it records the per-device peak of live bytes (``fits_h100_80g``:
 under 80e9), the counts, and (``with_roofline``, single-pod and local
@@ -31,13 +31,13 @@ still apply:
   loop over 4 096 to 32 768 tokens a layer takes tens of minutes a cell
   under fake tensors. A decode step runs for real; the correction adds
   what the counter cannot see of it (the elementwise terms);
-* ``moe_cpu_excess``: the static MoE path's extra products, removed from
-  the FLOPs as the reference removes its CPU ``ragged_dot``'s; and their
-  activations (``moe_static_excess_bytes``) removed from the fused bytes
-  and, in a train step, from the bytes a card (the extra experts' saved
-  product outputs; exact where the peak falls with every MoE layer's
-  outputs saved, else it removes up to a few layers' worth too many, so
-  ``per_device_bytes_static``, the count before it, is kept beside);
+* the MoE's expert products: a stand-in for the static-shape path that
+  ``models/moe.py`` takes on fake tensors (``_experts_even``: the grouped
+  product with the ``cap`` rows dealt evenly over the local experts, the
+  balanced routing the roofline assumes), so FLOPs, bytes and the peak
+  are the grouped path's own and nothing is removed afterwards; the
+  reference's ``moe_cpu_excess`` (what its CPU ``ragged_dot`` computes
+  beyond the grouped product) is recorded, not subtracted;
 * O1 and up: the memory term by decomposition, a run with the attention
   core stubbed out (``attn_impl="stub"``) plus kernel B4's exact q, k, v
   and out traffic (``flash_io_bytes``): the plain twin materializes tiles
@@ -47,8 +47,9 @@ Run (CPU only; one cell takes seconds to minutes):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
       --shape train_4k --mesh single --opt O2
 ``--mesh`` also takes ``RxC`` (a ('data', 'model') mesh of R x C fake
-ranks) and ``--shape`` a ``kind:BxS`` cell (e.g. ``train:8x2048``) beside
-the registry's shape names.
+ranks) or ``PxRxC`` (('pod', 'data', 'model')), and ``--shape`` a
+``kind:BxS`` cell (e.g. ``train:8x2048``) beside the registry's shape
+names.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import math
 import signal
 import time
 import traceback
@@ -63,6 +65,7 @@ from pathlib import Path
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from repro_torch.configs.registry import ARCHS, get_config, get_smoke_config
 from repro_torch.launch.roofline import (
@@ -72,7 +75,6 @@ from repro_torch.launch.roofline import (
     flash_io_bytes,
     model_flops,
     moe_cpu_excess,
-    moe_static_excess_bytes,
     rwkv_counter_misses,
     wkv_io_bytes,
 )
@@ -84,7 +86,7 @@ from repro_torch.launch.steps import (
     jit_prefill_step,
     jit_train_step,
 )
-from repro_torch.models import SHAPES, rwkv6
+from repro_torch.models import SHAPES, moe, rwkv6
 from repro_torch.models.config import ShapeConfig
 from repro_torch.optim.adamw import AdamW
 from repro_torch.tree import flatten_with_keys, tree_leaves, unflatten_like
@@ -136,8 +138,9 @@ def fake_world(world: int) -> None:
 
 
 def make_mesh(mesh_kind: str):
-    """The CPU mesh of a mesh kind ("single", "multi" or "RxC") in a fake
-    world of its size."""
+    """The CPU mesh of a mesh kind ("single", "multi", "RxC" as ('data',
+    'model') or "PxRxC" as ('pod', 'data', 'model')) in a fake world of its
+    size."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch.mesh import make_production_mesh
@@ -145,9 +148,9 @@ def make_mesh(mesh_kind: str):
     if mesh_kind in ("single", "multi"):
         fake_world(512 if mesh_kind == "multi" else 256)
         return make_production_mesh(multi_pod=mesh_kind == "multi", device_type="cpu")
-    r, c = (int(n) for n in mesh_kind.split("x"))
-    fake_world(r * c)
-    return init_device_mesh("cpu", (r, c), mesh_dim_names=("data", "model"))
+    shape = tuple(int(n) for n in mesh_kind.split("x"))
+    fake_world(math.prod(shape))
+    return init_device_mesh("cpu", shape, mesh_dim_names=("pod", "data", "model")[-len(shape):])
 
 
 def parse_shape(name: str) -> ShapeConfig:
@@ -205,6 +208,19 @@ def _wkv_io_only(r, k, v, w, u, state0):
     return o, state0 * w.float().prod(1)[..., None] + kv
 
 
+def _experts_even(x_sorted, e_sorted, w_gate, w_up, w_down):
+    """A stand-in for ``moe._expert_compute_static`` in the dry-run: the
+    grouped SwiGLU of ``moe._expert_compute`` with the rows dealt evenly
+    over the local experts, the first ``rows % E_local`` one row more. Its
+    group sizes need no values, so it runs on fake tensors and counts the
+    grouped path's FLOPs, bytes and saved products."""
+    n, rows = w_gate.shape[0], x_sorted.shape[0]
+    sizes = [rows // n + (e < rows % n) for e in range(n)]
+    gates, ups, downs = torch.unbind(w_gate), torch.unbind(w_up), torch.unbind(w_down)
+    return torch.cat([(F.silu(r @ gates[e]) * (r @ ups[e])) @ downs[e]
+                      for e, r in enumerate(torch.split(x_sorted, sizes)) if r.shape[0]])
+
+
 def _local_bytes(tree) -> int:
     from torch.distributed.tensor import DTensor
 
@@ -236,6 +252,7 @@ def cell_costs(cfg, shape: ShapeConfig, mesh, opt: str = "O0", attn_stub: bool =
     plans = [(tree, _local_shapes(tree, sh)) for tree, sh in trees]
     counter = CostCounter(mesh, dtype=str(dtype).removeprefix("torch."))
     wkv_scan, rwkv6._wkv_scan = rwkv6._wkv_scan, _wkv_io_only
+    static, moe._expert_compute_static = moe._expert_compute_static, _experts_even
     try:
         with FakeTensorMode(), counter:  # the counter above: it sees every op first
             args = tuple(_shards(tree, local) for tree, local in plans)
@@ -243,7 +260,7 @@ def cell_costs(cfg, shape: ShapeConfig, mesh, opt: str = "O0", attn_stub: bool =
             out = step(*args)
             out_bytes = _local_bytes(out)
     finally:
-        rwkv6._wkv_scan = wkv_scan
+        rwkv6._wkv_scan, moe._expert_compute_static = wkv_scan, static
     costs = counter.costs()
     return costs, {
         "argument_size_in_bytes": int(arg_bytes),
@@ -276,13 +293,9 @@ def run_cell(
     costs, mem = cell_costs(cfg, shape, mesh, opt)
     rec["compile_s"] = round(time.time() - t0, 1)  # the fake run's wall
     rec["memory_analysis"] = mem
-    # per-device steady-state estimate: args (params+opt+caches) + temps,
-    # less the static MoE path's extra saved activations
-    moe_fused, moe_live = moe_static_excess_bytes(cfg, shape, mesh_shape)
-    rec["per_device_bytes_static"] = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
-    per_dev = rec["per_device_bytes_static"] - moe_live
+    # per-device steady-state estimate: args (params+opt+caches) + temps
+    per_dev = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
     rec["per_device_bytes"] = per_dev
-    rec["moe_static_excess_bytes"] = {"fused": moe_fused, "live": moe_live}
     rec["fits_h100_80g"] = bool(per_dev < FITS_BYTES)
     rec["raw"] = dataclasses.asdict(costs)
 
@@ -290,16 +303,14 @@ def run_cell(
         corrected = dataclasses.replace(costs)
         corrected.flops += rwkv_counter_misses(cfg, shape, mesh_shape)
         corrected.fused_bytes += wkv_io_bytes(cfg, shape, mesh_shape)
-        excess = moe_cpu_excess(cfg, shape, mesh_shape)
-        adjusted = dataclasses.replace(corrected, flops=max(corrected.flops - excess, 0.0),
-                                       fused_bytes=corrected.fused_bytes - moe_fused)
+        adjusted = dataclasses.replace(corrected)
         flash_io = 0.0
         if opt != "O0" and "rwkv" not in cfg.period:
             stub, _ = cell_costs(cfg, shape, mesh, opt, attn_stub=True)
             flash_io = flash_io_bytes(cfg, shape, mesh_shape)
-            adjusted.fused_bytes = stub.fused_bytes - moe_fused + flash_io
+            adjusted.fused_bytes = stub.fused_bytes + flash_io
         rec["corrected"] = dataclasses.asdict(corrected)
-        rec["moe_cpu_excess_flops"] = excess
+        rec["moe_cpu_excess_flops"] = moe_cpu_excess(cfg, shape, mesh_shape)
         rec["flash_io_bytes"] = flash_io
         rec["roofline"] = adjusted.roofline(chips)
         active, total = _active_params(cfg)

@@ -276,9 +276,8 @@ def attention_hbm_adjustment(cfg, shape, mesh_shape: dict[str, int]) -> float:
 
 def moe_cpu_excess(cfg, shape, mesh_shape: dict[str, int]) -> float:
     """Per-device FLOPs that a dense all-experts expert product (the
-    reference's ``ragged_dot`` on a CPU; the port's static MoE path under
-    fake tensors) executes BEYOND the true grouped product: excess factor
-    (E_local - 1) on the routed expert compute."""
+    reference's ``ragged_dot`` on a CPU) executes BEYOND the true grouped
+    product: excess factor (E_local - 1) on the routed expert compute."""
     if cfg.moe is None:
         return 0.0
     mc = cfg.moe
@@ -301,47 +300,6 @@ def moe_cpu_excess(cfg, shape, mesh_shape: dict[str, int]) -> float:
     per_layer_dense = 3 * 2 * cap * cfg.d_model * mc.d_ff_expert * e_local
     mult = 3.0 if shape.kind == "train" else 1.0
     return n_moe * per_layer_dense * (1.0 - 1.0 / e_local) * mult
-
-
-def moe_static_excess_bytes(cfg, shape, mesh_shape: dict[str, int],
-                            itemsize: int = 2) -> tuple[float, float]:
-    """Per-device (fused bytes, live bytes at the peak) that the port's
-    static MoE path (``models/moe.py::_expert_compute_static``, every local
-    expert over all rows, under fake tensors) counts BEYOND the grouped
-    product over the same rows: the activations of E_local - 1 extra
-    experts, the counterpart of :func:`moe_cpu_excess` for bytes, on the
-    port's EP island (``models/moe.py::_moe_ep``) and with its rows.
-
-    The island's rows: on the tiny path (t_local * top_k <= 4096) every
-    FSDP rank's tokens, all-gathered, against each rank's ff slice of its
-    experts; else ``cap`` rows against the gathered ff. A product
-    (rows, d) @ (d, ff) counts rows * (d + ff) of activations in and out,
-    the three of an expert rows * 3 * (d + ff); a train step's backward
-    twice that. Live: in a train step under ``remat="dots"`` each extra
-    expert's three product outputs, rows * (2 ff + d), stay saved from
-    the forward to the backward; prefill and decode keep nothing (one
-    expert's intermediates at a time are transient, and not removed)."""
-    if cfg.moe is None or "model" not in mesh_shape:
-        return 0.0, 0.0
-    mc = cfg.moe
-    ep = mesh_shape["model"]
-    fsdp = [mesh_shape[a] for a in ("pod", "data") if a in mesh_shape]
-    e_local = mc.n_experts // ep
-    b, s = shape.global_batch, shape.seq_len
-    t_local = max(b // _dp(mesh_shape), 1) * (1 if shape.kind == "decode" else s)
-    ff = mc.d_ff_expert
-    if t_local * mc.top_k <= 4096 and fsdp:
-        rows = t_local * math.prod(fsdp) * mc.top_k
-        for n in fsdp:  # rank 0's ff slice, sharded axis by axis
-            ff = -(-ff // n)
-    else:
-        rows = min(int(t_local * mc.top_k / ep * mc.capacity_factor) + 1, t_local * mc.top_k)
-    n_moe = sum(1 for k in cfg.layer_kinds if k in ("moe", "mla"))
-    extra = n_moe * (e_local - 1) * rows * itemsize
-    train = shape.kind == "train"
-    fused = extra * 3 * (cfg.d_model + ff) * (3.0 if train else 1.0)
-    live = extra * (2 * ff + cfg.d_model) if train else 0.0
-    return float(fused), float(live)
 
 
 # --------------------------------------------------------------- counter

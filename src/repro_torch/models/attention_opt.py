@@ -93,35 +93,8 @@ def on_local_blocks(run, q: Tensor, k: Tensor, v: Tensor, *rest: Tensor) -> Tens
 
 
 def gather_last(x: Tensor, idx: Tensor) -> Tensor:
-    """``x[..., idx]`` per row: x (..., V), idx (...) -> (...). On a DTensor
-    it selects with a mask and sums over V (one nonzero term, so exact):
-    DTensor's ``gather`` over a sharded V leaves a masked partial that it
-    cannot reduce once the result is indexed."""
-    if isinstance(x, DTensor):
-        hit = idx[..., None] == _last_dim_index(x)
-        return torch.where(hit, x, 0.0).sum(-1)
+    """``x[..., idx]`` per row: x (..., V), idx (...) -> (...)."""
     return torch.gather(x, -1, idx[..., None])[..., 0]
-
-
-def _last_dim_index(x: DTensor) -> DTensor:
-    """``arange(x.shape[-1])`` split as x splits its last dim, each rank
-    holding its own slice's indices: compared with x's rows it leaves x
-    where it is (a plain arange would be replicated, and x gathered whole
-    to meet it)."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    last, mesh = x.ndim - 1, x.device_mesh
-    pl = [Shard(0) if isinstance(p, Shard) and p.dim % x.ndim == last else Replicate()
-          for p in x.placements]
-    start, n, coord = 0, x.shape[-1], mesh.get_coordinate()
-    for i, p in enumerate(pl):  # torch.chunk's split, mesh dim by mesh dim
-        if isinstance(p, Shard):
-            size = -(-n // mesh.size(i))
-            first = min(coord[i] * size, n)
-            start, n = start + first, max(min(size, n - first), 0)
-    local = torch.arange(start, start + n, device=x.to_local().device)
-    return DTensor.from_local(local, x.device_mesh, pl, run_check=False,
-                              shape=(x.shape[-1],), stride=(1,))
 
 
 def chunked_softmax_xent(

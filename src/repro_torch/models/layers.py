@@ -7,7 +7,8 @@ The port of ``repro/models/layers.py``. Layers are plain functions over
 parameter trees (nested dicts of tensors); the parameters carry the dtype
 and the device, activations follow. On a mesh the trees hold DTensors and
 the same functions run by DTensor's sharding propagation (the attention
-core on each rank's block, ``attention_opt.on_local_blocks``); ``pin_batch``,
+core and the MLP on each rank's block, ``attention_opt.on_local_blocks``
+and ``distributed.blocks.local_blocks``); ``pin_batch``,
 the reference's GSPMD batch-sharding constraint, re-places a DTensor's
 batch dim on the DP axes. The ``stub`` probe (``attn_impl="stub"``, the
 dry-run's roofline decomposition) keeps the q/k/v/o projections of train
@@ -24,7 +25,8 @@ import torch.nn.functional as F
 from torch import Tensor
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.distributed.blocks import merge_last, split_last
+from repro_torch.distributed.blocks import (grad_placed, local_blocks, merge_last, rows_product,
+                                            split_last)
 
 from .attention_opt import chunked_sdpa, on_local_blocks, stub_sdpa
 from .config import ModelConfig
@@ -317,12 +319,15 @@ def mla_apply(
     h = cfg.n_heads
     nd, rd, vd = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
 
-    q = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps) @ p["wq_b"]
+    # the latents, whole on every rank, feed products split over ``model``:
+    # their gradients come back placed as they are, as a block's input's do
+    # (``stack.block_apply``)
+    q = grad_placed(rmsnorm(p["q_norm"], rows_product(x, p["wq_a"]), cfg.norm_eps)) @ p["wq_b"]
     q = split_last(q, h, nd + rd)
     q_nope, q_pe = q[..., :nd], q[..., nd:]
 
-    kv_a = x @ p["wkv_a"]  # (B,T, rank+rd)
-    c_kv = rmsnorm(p["kv_norm"], kv_a[..., :m.kv_lora_rank], cfg.norm_eps)
+    kv_a = rows_product(x, p["wkv_a"])  # (B,T, rank+rd)
+    c_kv = grad_placed(rmsnorm(p["kv_norm"], kv_a[..., :m.kv_lora_rank], cfg.norm_eps))
     k_pe_raw = kv_a[..., m.kv_lora_rank:]  # (B,T,rd), shared across heads
 
     if ctx.mode == "decode":
@@ -393,4 +398,17 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, dtype, device) -> Params:
 
 
 def mlp_apply(p: Params, x: Tensor) -> Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """SwiGLU over x's last dim. On a mesh each rank runs its block
+    (``local_blocks``): its batch rows against its columns of ff, the
+    weights' FSDP shards of d gathered; the output is the down-projection's
+    partial sum over ``model`` (``stack.block_apply`` sums it at the
+    residual add)."""
+    w = (p["w_gate"], p["w_up"], p["w_down"])
+    if isinstance(x, DTensor):
+        return local_blocks(_swiglu, (x,) + w, [(0, None), (None, 1), (None, 1), (None, 0)],
+                            [(0, None)])
+    return _swiglu(x, *w)
+
+
+def _swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down

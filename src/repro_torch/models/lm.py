@@ -25,6 +25,7 @@ without MoE layers).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -76,6 +77,24 @@ def _head_operands(params: Params, h: Tensor, cfg: ModelConfig) -> tuple[Tensor,
     dry-run counts it."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return _gathered(h, -1), _gathered(w, 0)
+
+
+def _xent(h: Tensor, w: Tensor, labels: Tensor, chunk: int | None) -> Tensor:
+    """Per-token cross entropy (B, S) of the logits ``h @ w``: dense, or
+    over static vocabulary chunks (``chunked_softmax_xent``) when ``chunk``
+    is set. On a mesh each rank runs its batch rows' slice of the sequence
+    over ``model`` against the whole head (``local_blocks``): every
+    token's loss is its own, and with the stream whole over ``model``
+    every rank of ``model`` would otherwise compute each token's logits (a
+    vocabulary that does not divide ``model``, or a chunk of one that
+    does, is gathered whole)."""
+    if isinstance(h, DTensor):
+        return local_blocks(functools.partial(_xent, chunk=chunk), (h, w, labels),
+                            [(0, 1), (None, None), (0, 1)], [(0, 1)])
+    if chunk is not None:
+        return chunked_softmax_xent(h, w, labels, chunk=chunk)
+    logits = (h @ w).float()
+    return torch.logsumexp(logits, dim=-1) - gather_last(logits, labels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,15 +219,9 @@ class Model:
             labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
         labels = labels.long()
         h, aux = self._hidden(params, batch)
-        if self.vocab_chunk is not None:
-            # never materialize (B,S,V) float32 logits
-            h, w = _head_operands(params, rmsnorm(params["ln_f"], h, self.cfg.norm_eps),
-                                  self.cfg)
-            ce_tok = chunked_softmax_xent(h, w, labels, chunk=self.vocab_chunk)
-        else:
-            logits = self._head(params, h).float()
-            gold = gather_last(logits, labels)
-            ce_tok = torch.logsumexp(logits, dim=-1) - gold
+        # with vocab_chunk set, never the (B,S,V) float32 logits at once
+        h, w = _head_operands(params, rmsnorm(params["ln_f"], h, self.cfg.norm_eps), self.cfg)
+        ce_tok = _xent(h, w, labels, self.vocab_chunk)
         # last position has no target (a plain tensor: on a mesh, replicated)
         mask = torch.ones(ce_tok.shape, dtype=ce_tok.dtype, device=ce_tok.device)
         mask[:, -1] = 0.0

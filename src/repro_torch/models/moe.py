@@ -19,7 +19,8 @@ device-to-host read per MoE layer call (per shard on a mesh), counted in
 rows take a static-shape path instead (``_expert_compute_static``: every
 local expert over all ``cap`` rows, each row keeping its own expert's
 output), the dense form ``ragged_dot`` takes on the reference's CPU; the
-dry-run removes its extra products with ``roofline.moe_cpu_excess``.
+dry-run, which counts what a card would run, swaps it for a grouped
+product over evenly dealt rows (``launch/dryrun.py::_experts_even``).
 
 Expert parallelism (an :class:`EPSpec`) runs the reference's two
 ``shard_map`` islands through DTensor's ``local_map``, with the same in and
@@ -252,7 +253,12 @@ def _mesh_placements(mesh, shard: dict, partial: tuple[str, ...] = ()) -> tuple:
 
 
 def _moe_ep(p: Params, x: Tensor, cfg: ModelConfig, ep: EPSpec) -> tuple[Tensor, Tensor]:
-    """The expert-parallel island over ``ep.mesh``: x (B,S,d) -> (y, aux)."""
+    """The expert-parallel island over ``ep.mesh``: x (B,S,d) -> (y, aux).
+    As in the reference, x's rows (B*S, d) are sharded over the DP axes, so
+    a batch narrower than the DP axes is fine when its rows divide them;
+    ``t_local`` and ``cap`` keep the reference's arithmetic, which counts
+    ``max(B // dp, 1) * S`` rows a rank whatever it holds."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mc = cfg.moe
@@ -274,8 +280,7 @@ def _moe_ep(p: Params, x: Tensor, cfg: ModelConfig, ep: EPSpec) -> tuple[Tensor,
     offset = mesh.get_local_rank(ea) * n_local
     tiny = tiny and len(fsdp) > 0
 
-    def island(x_l, router, w_gate_l, w_up_l, w_down_l, *shared_l):
-        x2d_l = x_l.reshape(-1, d)  # each rank's rows, batch-major as the reference's
+    def island(x2d_l, router, w_gate_l, w_up_l, w_down_l, *shared_l):
         if tiny:
             # weights stay resident; the tokens come to them over the FSDP
             # axes, and each rank's (experts, ff) slice gives a partial sum
@@ -301,7 +306,7 @@ def _moe_ep(p: Params, x: Tensor, cfg: ModelConfig, ep: EPSpec) -> tuple[Tensor,
             y = _psum(y, mesh, (ea,))
         axes = tuple(a for a in dpx + (ea,) if a in mesh.mesh_dim_names)
         aux = _psum(aux, mesh, axes) / math.prod(size(a) for a in axes)
-        return y.reshape(x_l.shape), aux
+        return y, aux
 
     dp_in = {a: 0 for a in dpx if a in mesh.mesh_dim_names}
     w_in = dict({a: 2 for a in fsdp}, **{ea: 0})
@@ -311,14 +316,22 @@ def _moe_ep(p: Params, x: Tensor, cfg: ModelConfig, ep: EPSpec) -> tuple[Tensor,
              _mesh_placements(mesh, wd_in)]
     grad_pl = [_mesh_placements(mesh, dp_in, (ea,)),
                _mesh_placements(mesh, {}, tuple(mesh.mesh_dim_names))] + in_pl[2:]
-    args = [x, p["router"], p["w_gate"], p["w_up"], p["w_down"]]
+    # A batch narrower than the DP axes splits over them by rows, not by
+    # sequences, and DTensor's views can neither unflatten rows split
+    # unevenly into sequences nor flatten a batch of one split over axes of
+    # size 1: such a batch is whole on every rank around the island (as the
+    # sharding rules place it), its rows split inside.
+    whole = isinstance(x, DTensor) and (b % dp != 0 or b == 1)
+    if whole:
+        x = x.redistribute(mesh, [Replicate() if pl == Shard(0) else pl for pl in x.placements])
+    args = [x.reshape(b * s, d), p["router"], p["w_gate"], p["w_up"], p["w_down"]]
     if mc.n_shared:
         sh = p["shared"]
         args += [sh["w_gate"], sh["w_up"], sh["w_down"]]
         for spec in ({ea: 1}, {ea: 1}, {ea: 0}):
             in_pl.append(_mesh_placements(mesh, spec))
             grad_pl.append(_mesh_placements(mesh, spec, tuple(dp_in)))
-    y, aux = local_map(
+    y2d, aux = local_map(
         island,
         out_placements=(_mesh_placements(mesh, dp_in), _mesh_placements(mesh, {})),
         in_placements=tuple(in_pl),
@@ -326,7 +339,9 @@ def _moe_ep(p: Params, x: Tensor, cfg: ModelConfig, ep: EPSpec) -> tuple[Tensor,
         device_mesh=mesh,
         redistribute_inputs=True,
     )(*args)
-    return y, aux
+    if whole:
+        y2d = y2d.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return y2d.reshape(b, s, d), aux
 
 
 def moe_apply(p: Params, x: Tensor, cfg: ModelConfig, ep: EPSpec | None = None) -> tuple[Tensor, Tensor]:

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from torch import Tensor
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.blocks import local_blocks, split_last
+from repro_torch.distributed.blocks import (grad_placed, local_blocks, placed_like, rows_product,
+                                            split_last)
 
 from .config import ModelConfig
 from .layers import _init
@@ -121,7 +122,11 @@ def rwkv_apply(
     n_h = d // hd
 
     # ---- time mix (pre-norm inside; the block owns its residuals)
-    h1 = _rms(x, p["ln_tm"])
+    # on a mesh the residual stream keeps its placements, as
+    # ``stack.block_apply`` keeps them: each mix is placed as the stream
+    # before its add, and the products' inputs' gradients come back placed
+    # as the inputs
+    h1 = grad_placed(_rms(x, p["ln_tm"]))
     prev_tm = cache["shift_tm"] if cache is not None else None
     xprev = _token_shift(h1, prev_tm)
     mix = p["mix"][:, None, None, :]  # (5,1,1,d)
@@ -130,7 +135,7 @@ def rwkv_apply(
     k = split_last(xk @ p["w_k"], n_h, hd)
     v = split_last(xv @ p["w_v"], n_h, hd)
     g = F.silu(xg @ p["w_g"])
-    decay = p["decay_w0"] + torch.tanh(xw @ p["decay_a"]) @ p["decay_b"]
+    decay = p["decay_w0"] + torch.tanh(rows_product(xw, p["decay_a"])) @ p["decay_b"]
     w = split_last(torch.exp(-torch.exp(decay.float())), n_h, hd)
 
     state0 = (
@@ -151,17 +156,17 @@ def rwkv_apply(
     o = (o32.to(x.dtype) * p["ln_scale"]).reshape(b, s, d)
     y_tm = (o * g) @ p["w_o"]
 
-    x2 = x + y_tm
+    x2 = x + placed_like(y_tm, x)
 
     # ---- channel mix
-    h2 = _rms(x2, p["ln_cm"])
+    h2 = grad_placed(_rms(x2, p["ln_cm"]))
     prev_cm = cache["shift_cm"] if cache is not None else None
     x2prev = _token_shift(h2, prev_cm)
     mr, mk = p["cm_mix"][:, None, None, :]
     xr2 = h2 * mr + x2prev * (1 - mr)
     xk2 = h2 * mk + x2prev * (1 - mk)
     kk = torch.square(F.relu(xk2 @ p["cm_k"]))
-    y_cm = (kk @ p["cm_v"]) * torch.sigmoid(xr2 @ p["cm_r"])
+    y_cm = placed_like(kk @ p["cm_v"], x2) * torch.sigmoid(xr2 @ p["cm_r"])
 
     new_cache = None
     if mode in ("prefill", "decode"):
@@ -170,4 +175,4 @@ def rwkv_apply(
             "shift_tm": h1[:, -1, :],
             "shift_cm": h2[:, -1, :],
         }
-    return x2 + y_cm, new_cache  # full residual stream (stack passes through)
+    return x2 + placed_like(y_cm, x2), new_cache  # full residual stream (stack passes through)

@@ -39,7 +39,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
-from repro_torch.distributed.blocks import split_last
+from repro_torch.distributed.blocks import grad_placed, placed_like, split_last
 
 from .config import ModelConfig
 from .layers import (
@@ -122,19 +122,31 @@ def block_apply(
 ) -> tuple[Tensor, Params | None, Tensor]:
     """Pre-norm residual attention (GQA or MLA) + dense or MoE MLP block
     (``xattn`` adds pre-norm residual cross-attention between the two), the
-    RWKV6 block, or pre-norm residual RG-LRU + dense MLP. Returns (x, new_cache, aux loss), the aux a float 0.0 for a
-    dense MLP."""
+    RWKV6 block, or pre-norm residual RG-LRU + dense MLP. Returns (x,
+    new_cache, aux loss), the aux a float 0.0 for a dense MLP.
+
+    On a mesh the residual stream keeps its placements (the embedding's:
+    the batch over the DP axes, whole over ``model``): a sub-block's
+    output, partial over ``model`` where its last product sums over a dim
+    split there, is placed as the stream before the add (``placed_like``),
+    and the gradient of a sub-block's input comes back at the input's
+    placements (``grad_placed``). Left to DTensor, the stream turns partial
+    or split on d at no cost, and the next norm reduce-scatters it over the
+    sequence, so that every product after it merges a strided shard."""
     _check_kind(kind)
     if kind == "rwkv":
         x, new_cache = rwkv_apply(p["rwkv"], x, cfg, ctx.mode, cache)
         return x, new_cache, 0.0
+
+    def norm(name: str, x: Tensor) -> Tensor:
+        return grad_placed(rmsnorm(p[name], x, cfg.norm_eps))
+
     if kind == "rglru":
-        y, new_cache = rglru_apply(p["rglru"], rmsnorm(p["ln1"], x, cfg.norm_eps), ctx.mode,
-                                   cache)
-        x = x + y
-        return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps)), new_cache, 0.0
+        y, new_cache = rglru_apply(p["rglru"], norm("ln1", x), ctx.mode, cache)
+        x = x + placed_like(y, x)
+        return x + placed_like(mlp_apply(p["mlp"], norm("ln2", x)), x), new_cache, 0.0
     self_cache = cache.get("self") if cache else None
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = norm("ln1", x)
     if kind == "enc":
         # bidirectional; enc blocks only run in full-sequence mode, no cache
         y, new_self = _bidirectional_attn(p["attn"], h, cfg), None
@@ -143,23 +155,22 @@ def block_apply(
     else:
         window = cfg.window if kind == "local" else None
         y, new_self = attn_apply(p["attn"], h, ctx, cfg, window=window, cache=self_cache)
-    x = x + y
+    x = x + placed_like(y, x)
     new_cache = None
     if kind == "xattn":
-        hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
-        yx, new_cross = attn_apply(p["xattn"], hx, ctx, cfg,
+        yx, new_cross = attn_apply(p["xattn"], norm("ln_x", x), ctx, cfg,
                                    cache=cache.get("cross") if cache else None, cross=True)
-        x = x + yx
+        x = x + placed_like(yx, x)
         if new_self is not None or new_cross is not None:
             new_cache = {"self": new_self, "cross": new_cross}
     elif new_self is not None:
         new_cache = {"self": new_self}
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = norm("ln2", x)
     if _mlp_kind(kind) == "moe":
         y, aux = moe_apply(p["moe"], h, cfg, ctx.ep)
     else:
         y, aux = mlp_apply(p["mlp"], h), 0.0  # no launch for a zero
-    return x + y, new_cache, aux
+    return x + placed_like(y, x), new_cache, aux
 
 
 def _bidirectional_attn(p: Params, h: Tensor, cfg: ModelConfig) -> Tensor:

@@ -108,7 +108,9 @@ def moe_ep_rank(rank: int, inp: str, out: str) -> None:
             ).requires_grad_()
             for key, v in flatten_with_keys(case["params"])
         }
-        batch = [Shard(0), Replicate()]
+        # the batch over 'data' where it divides it, else replicated, as
+        # the sharding rules place a batch
+        batch = [Shard(0) if case["x"].shape[0] % 2 == 0 else Replicate(), Replicate()]
         x = distribute_tensor(case["x"], mesh, batch).requires_grad_()
         y, aux = moe_apply(unflatten_like(case["params"], leaves), x, cfg, ep)
         loss = torch.sum(y * distribute_tensor(case["gy"], mesh, batch)) + case["aux_scale"] * aux
@@ -122,10 +124,12 @@ def moe_ep_rank(rank: int, inp: str, out: str) -> None:
 
 
 def sharded_steps_rank(rank: int, inp: str, out: str) -> None:
-    """On a (2, 2) mesh: ``jit_train_step`` for each train case of ``inp``
-    (each step's metrics and state, and the model's aux loss at the first
-    state), then the sharded prefill and decode steps of each serve case
-    (each step's logits and the final caches)."""
+    """On ``inp``'s mesh (a (2, 2) ('data', 'model') mesh unless it names
+    another shape, three dims being ('pod', 'data', 'model')):
+    ``jit_train_step`` for each train case of ``inp`` (each step's metrics
+    and state, and the model's aux loss at the first state), then the
+    sharded prefill and decode steps of each serve case (each step's
+    logits and the final caches)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs.registry import get_smoke_config
@@ -135,8 +139,11 @@ def sharded_steps_rank(rank: int, inp: str, out: str) -> None:
     from repro_torch.models.config import ShapeConfig
     from repro_torch.optim import AdamW, cosine_schedule
 
-    mesh = mesh_2x2()
+    from torch.distributed.device_mesh import init_device_mesh
+
     cases = torch.load(inp, weights_only=False)
+    shape = cases.get("mesh", (2, 2))
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("pod", "data", "model")[-len(shape):])
     results = {"train": {}, "serve": {}}
     for name, case in cases["train"].items():
         cfg = get_smoke_config(case["arch"])

@@ -11,7 +11,11 @@ weights, x and the output cotangent gy from numpy with a seed.
 Cases: DeepSeek-V3's smoke config (a shared expert) and Qwen3-MoE's, with x
 of shape (4, 1) (the tiny path: tokens gathered over 'data', weights
 resident) and (4, 2100) (the ZeRO path: t_local * top_k = 8400 > 4096,
-expert ff slices gathered). Held: y at atol 1e-5, aux at atol 1e-5, and
+expert ff slices gathered), and of one sequence, narrower than the 'data'
+axis, placed as the sharding rules place such a batch (replicated): (1, 2)
+(the tiny path) and (1, 2100) (the ZeRO path; t_local = 2100 counts the
+whole sequence a rank, as the reference's arithmetic does, though each
+rank holds 1050 rows). Held: y at atol 1e-5, aux at atol 1e-5, and
 the gradients of sum(y * gy) + 100 * aux for every parameter (router and
 shared expert included) and for x, each within 2e-6 of its leaf's
 largest entry.
@@ -34,9 +38,9 @@ from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 ROOT = Path(__file__).resolve().parents[1]
 AUX_SCALE = 100.0
 CASES = {
-    f"{arch}-{t}": (arch, t)
+    f"{arch}-{t}" if b == 4 else f"{arch}-{b}x{t}": (arch, b, t)
     for arch in ("deepseek-v3-671b", "qwen3-moe-30b-a3b")
-    for t in (1, 2100)
+    for b, t in ((4, 1), (4, 2100), (1, 2), (1, 2100))
 }
 
 REFERENCE = textwrap.dedent("""
@@ -80,13 +84,13 @@ def runs(tmp_path_factory):
 
     tmp = tmp_path_factory.mktemp("moe_ep")
     inputs = {}
-    for i, (name, (arch, t)) in enumerate(CASES.items()):
+    for i, (name, (arch, b, t)) in enumerate(CASES.items()):
         d = get_smoke_config(arch).d_model
         rng = np.random.default_rng(i)
         inputs[name + "/arch"] = np.array(arch)
         inputs[name + "/seed"] = np.array(i)
-        inputs[name + "/x"] = (0.3 * rng.standard_normal((4, t, d))).astype(np.float32)
-        inputs[name + "/gy"] = rng.standard_normal((4, t, d)).astype(np.float32)
+        inputs[name + "/x"] = (0.3 * rng.standard_normal((b, t, d))).astype(np.float32)
+        inputs[name + "/gy"] = rng.standard_normal((b, t, d)).astype(np.float32)
     np.savez(tmp / "in.npz", **inputs)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, "-c", REFERENCE, str(tmp / "in.npz"),
@@ -96,7 +100,7 @@ def runs(tmp_path_factory):
     ref = np.load(tmp / "ref.npz")
 
     cases = {}
-    for name, (arch, _) in CASES.items():
+    for name, (arch, _, _) in CASES.items():
         prefix = name + "/param"
         flat = {k[len(prefix):]: torch.from_numpy(ref[k].copy()) for k in ref.files
                 if k.startswith(prefix)}
@@ -146,20 +150,22 @@ def test_island_gradients_match_reference(runs, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_island_aux_is_the_mean_of_each_shards_term(runs, name):
-    """(4, 1): t_local * top_k <= 4096, the tiny path, whose shards route
-    all gathered tokens, so aux is the local path's; (4, 2100): the ZeRO
-    path, whose aux is the mean of the two data shards' own terms."""
+    """(4, 1) and (1, 2): t_local * top_k <= 4096, the tiny path, whose
+    shards route all gathered tokens, so aux is the local path's; (4, 2100)
+    and (1, 2100): the ZeRO path, whose aux is the mean of the two data
+    shards' own terms, each shard half of x's rows."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models.moe import moe_apply
 
     _, port, cases = runs
-    arch, t = CASES[name]
+    arch, b, t = CASES[name]
     cfg = get_smoke_config(arch)
-    assert ((4 // 2) * t * cfg.moe.top_k <= 4096) == (t == 1)
+    assert (max(b // 2, 1) * t * cfg.moe.top_k <= 4096) == (t < 2100)
     case = cases[name]
-    if t == 1:
+    if t < 2100:
         want = moe_apply(case["params"], case["x"], cfg)[1]
     else:
-        want = sum(moe_apply(case["params"], half, cfg)[1] for half in case["x"].split(2)) / 2
+        rows = case["x"].reshape(1, b * t, -1)
+        want = sum(moe_apply(case["params"], half, cfg)[1] for half in rows.chunk(2, dim=1)) / 2
         assert abs(float(want) - float(moe_apply(case["params"], case["x"], cfg)[1])) > 1e-8
     np.testing.assert_allclose(float(port[name]["aux"]), float(want), atol=1e-8, rtol=0)

@@ -8,7 +8,9 @@ once for the module and run at once, each taking half the cases, run:
   archs' smoke configs at O0 (naive attention, dense CE; the MoE archs
   through the expert-parallel island), and SmolLM's at O2 (batch pins,
   kernel B4's plain twin on local blocks, chunked CE), with
-  ``remat="none"`` as ``train()`` builds;
+  ``remat="none"`` as ``train()`` builds; a third world runs SmolLM's O0
+  steps on a (2, 1, 2) ('pod', 'data', 'model') mesh, the batch over two
+  DP axes as on the multi-pod mesh;
 * ``jit_prefill_step`` at O3 and three ``jit_decode_step`` steps for SmolLM
   and for Qwen3-MoE.
 
@@ -57,7 +59,9 @@ from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 B, S = 4, 16
 SCHEDULE = dict(base_lr=3e-3, warmup=20, total=200)  # train()'s: lr 1.5e-4, 3e-4
-TRAIN = {arch: (arch, "O0") for arch in ARCHS} | {"smollm-135m-O2": ("smollm-135m", "O2")}
+TRAIN = {arch: (arch, "O0") for arch in ARCHS} | {"smollm-135m-O2": ("smollm-135m", "O2"),
+                                                   "smollm-135m-2x1x2": ("smollm-135m", "O0")}
+MESHES = {"smollm-135m-2x1x2": (2, 1, 2)}  # cases off the (2, 2) mesh, a world each
 SERVE = ("smollm-135m", "qwen3-moe-30b-a3b")
 JAX_HELD = ("smollm-135m", "qwen3-moe-30b-a3b")
 
@@ -101,16 +105,18 @@ def sharded(cases, tmp_path_factory):
     sharding propagation) dominates, about 3-30 s an arch, so the cases go
     to two worlds that run at once."""
     tmp = tmp_path_factory.mktemp("sharded_steps")
-    names = list(cases["train"])
-    halves = [{"train": {n: cases["train"][n] for n in names[i::2]},
+    names = [n for n in cases["train"] if n not in MESHES]
+    worlds = [{"train": {n: cases["train"][n] for n in names[i::2]},
                "serve": cases["serve"] if i == 0 else {}} for i in (0, 1)]
+    worlds += [{"train": {n: cases["train"][n]}, "serve": {}, "mesh": shape}
+               for n, shape in MESHES.items()]
     jobs = []
-    for i, half in enumerate(halves):
-        torch.save(half, tmp / f"in{i}.pt")
+    for i, world in enumerate(worlds):
+        torch.save(world, tmp / f"in{i}.pt")
         jobs.append((sharded_steps_rank, 4, (str(tmp / f"in{i}.pt"), str(tmp / f"out{i}.pt"))))
     run_worlds(jobs)
-    out = [torch.load(tmp / f"out{i}.pt", weights_only=False) for i in (0, 1)]
-    return {kind: out[0][kind] | out[1][kind] for kind in ("train", "serve")}
+    out = [torch.load(tmp / f"out{i}.pt", weights_only=False) for i in range(len(worlds))]
+    return {kind: {k: v for o in out for k, v in o[kind].items()} for kind in ("train", "serve")}
 
 
 def _unsharded_steps(case, starts, nudge: float = 0.0):
